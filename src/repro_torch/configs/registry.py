@@ -1,0 +1,57 @@
+"""Architecture registry: ``--arch <id>`` resolution + reduced smoke variants.
+
+The port registers the archs its dense backbone runs: the paper's T-MUX
+(three sizes) and qwen1.5-4b.  The smoke rules are the reference's
+(``repro.configs.registry.get_smoke_config``) for these archs.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import qwen1_5_4b, tmux_12l_768h
+from repro_torch.configs.base import ModelConfig
+
+ARCHS: dict[str, ModelConfig] = {
+    "qwen1.5-4b": qwen1_5_4b.CONFIG,
+    "tmux-12l-768h": tmux_12l_768h.CONFIG,
+    "tmux-12l-384h": tmux_12l_768h.CONFIG_12L_384H,
+    "tmux-4l-768h": tmux_12l_768h.CONFIG_4L_768H,
+}
+
+
+def get_config(arch: str, *, mux_n: int | None = None,
+               mux_strategy: str | None = None) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; have {sorted(ARCHS)}")
+    cfg = ARCHS[arch]
+    if mux_n is not None or mux_strategy is not None:
+        mux = dataclasses.replace(
+            cfg.mux,
+            **({"n": mux_n} if mux_n is not None else {}),
+            **({"strategy": mux_strategy} if mux_strategy else {}))
+        cfg = dataclasses.replace(cfg, mux=mux)
+    return cfg
+
+
+def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
+    """Reduced same-family variant: 4 layers, d_model <= 256, 4 heads,
+    vocab 512, float32."""
+    cfg = get_config(arch)
+    d = min(cfg.d_model, 256)
+    heads = 4
+    kv = min(cfg.n_kv_heads, heads)
+    kv = heads // max(1, heads // kv)  # keep divisibility
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=4,
+        d_model=d,
+        n_heads=heads,
+        n_kv_heads=kv,
+        head_dim=64 if cfg.head_dim else 0,
+        d_ff=4 * d if cfg.d_ff else 0,
+        vocab=512,
+        dtype="float32",
+        param_dtype="float32",
+        mux=dataclasses.replace(cfg.mux, n=mux_n),
+    )

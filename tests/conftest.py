@@ -76,6 +76,12 @@ except ImportError:
     sys.modules["hypothesis.strategies"] = _st
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of the PyTorch port; needs a "
+        "GPU and skips without one")
+
+
 @pytest.fixture
 def key():
     return jax.random.PRNGKey(0)
