@@ -1,5 +1,6 @@
-"""Weight bridge: the JAX package's param pytree -> a ``Backbone``
-state_dict.
+"""Weight and cache bridge: the JAX package's param pytree -> a
+``Backbone`` state_dict, and its decode-cache pytree -> the port's
+per-layer cache list.
 
 The input is the reference's param tree with every leaf already a numpy
 array (``jax.tree.map(np.asarray, params)``), so this module needs neither
@@ -17,6 +18,11 @@ JAX nor the reference package.  Mapping:
 
 A tied embedding stays tied: the reference then has no ``lm_head`` and
 neither does the state_dict.
+
+A cache pytree has the same head / scanned blocks / tail split, with one
+dict of leaves per layer (``k``/``v``/``pos`` contiguous, or
+``k_pages``/``v_pages``/``pos`` paged); ``cache_from_jax`` splits it into
+one such dict of tensors per layer, in layer order.
 """
 from __future__ import annotations
 
@@ -51,13 +57,9 @@ def _index(tree, g: int):
     return np.asarray(tree)[g]
 
 
-def params_from_jax(np_params: dict, cfg) -> dict[str, torch.Tensor]:
-    """Reference param tree (numpy leaves) -> ``Backbone(cfg)`` state_dict
-    (CPU tensors; ``load_state_dict`` copies them to the model's device and
-    keeps the model's dtype)."""
-    head = list(np_params.get("head_layers", []))
-    blocks = list(np_params.get("blocks", []))
-    tail = list(np_params.get("tail_layers", []))
+def _layers(head, blocks, tail, cfg, what: str) -> list:
+    """Per-layer trees in layer order: layer ``head + g * period + j``
+    reads ``blocks[j][leaf][g]``."""
     period = len(blocks)
     groups = np.asarray(_first_leaf(blocks[0])).shape[0] if blocks else 0
     layers = list(head)
@@ -67,8 +69,18 @@ def params_from_jax(np_params: dict, cfg) -> dict[str, torch.Tensor]:
             layers[len(head) + g * period + j] = _index(block, g)
     layers += tail
     if len(layers) != cfg.n_layers:
-        raise ValueError(f"param tree has {len(layers)} layers, config "
+        raise ValueError(f"{what} tree has {len(layers)} layers, config "
                          f"{cfg.name!r} has {cfg.n_layers}")
+    return layers
+
+
+def params_from_jax(np_params: dict, cfg) -> dict[str, torch.Tensor]:
+    """Reference param tree (numpy leaves) -> ``Backbone(cfg)`` state_dict
+    (CPU tensors; ``load_state_dict`` copies them to the model's device and
+    keeps the model's dtype)."""
+    layers = _layers(np_params.get("head_layers", []),
+                     np_params.get("blocks", []),
+                     np_params.get("tail_layers", []), cfg, "param")
 
     out: dict[str, torch.Tensor] = {}
     for name in ("embed", "final_norm", "lm_head", "mux", "demux"):
@@ -77,6 +89,15 @@ def params_from_jax(np_params: dict, cfg) -> dict[str, torch.Tensor]:
     for i, layer in enumerate(layers):
         _flatten(layer, f"layers.{i}.", out)
     return out
+
+
+def cache_from_jax(np_cache: dict, cfg) -> list[dict[str, torch.Tensor]]:
+    """Reference decode cache ({"head", "blocks", "tail"}, numpy leaves,
+    contiguous or paged) -> the port's per-layer cache list (CPU tensors,
+    the reference's dtypes)."""
+    layers = _layers(np_cache["head"], np_cache["blocks"], np_cache["tail"],
+                     cfg, "cache")
+    return [{k: _tensor(v) for k, v in layer.items()} for layer in layers]
 
 
 def _first_leaf(tree):

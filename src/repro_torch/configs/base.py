@@ -85,8 +85,9 @@ class MuxConfig:
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Decode-cache layout and scheduling knobs.  Same fields and defaults
-    as ``repro.configs.base.ServingConfig``; the port so far serves the
-    lock-step contiguous path, which reads only ``fuse_demux``."""
+    as ``repro.configs.base.ServingConfig``.  The port serves every field
+    but the replica router's (``replicas``, ``router_policy``,
+    ``router_sync``)."""
     paged: bool = False
     page_size: int = 16
     pool_pages: int = 0
@@ -200,6 +201,16 @@ class ModelConfig:
                         f"width_set member {w} violates mux strategy "
                         f"{self.mux.strategy!r} constraints at d_model="
                         f"{self.d_model}: {e}") from e
+        # The paged kernel stages kblock_pages pages of K and V in shared
+        # memory: a stage that cannot fit fails here with the knob to turn,
+        # not at the first launch mid-serve.  The plain version has no
+        # stage, so the check applies only with the kernel on.
+        if self.serving.paged and self.serving.use_kernel:
+            from repro_torch.kernels.paged_attention.kernel import \
+                validate_kblock
+            validate_kblock(self.serving.kblock_pages,
+                            self.serving.page_size, self.head_dim_,
+                            itemsize=self.compute_dtype.itemsize)
 
     # -- derived -------------------------------------------------------------
 
@@ -220,13 +231,16 @@ class ModelConfig:
             dim=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim_,
             qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
-            causal=self.causal)
+            causal=self.causal, paged_kernel=self.serving.use_kernel,
+            kblock_pages=self.serving.kblock_pages)
 
     def layer_kinds(self) -> list[dict]:
-        """Static per-layer structure.  Dense family: every layer is
-        attention, followed by a dense MLP when ``d_ff`` is set."""
+        """Static per-layer structure.  Dense family: every layer is full
+        attention (no window), followed by a dense MLP when ``d_ff`` is
+        set."""
         mlp = "dense" if self.d_ff else None
-        return [dict(mixer="attn", mlp=mlp) for _ in range(self.n_layers)]
+        return [dict(mixer="attn", mlp=mlp, window=None)
+                for _ in range(self.n_layers)]
 
 
 def replace(cfg, **kw):

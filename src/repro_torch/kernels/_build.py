@@ -41,6 +41,8 @@ _SIGNATURES = {
                             _P],
     "index_embed_demux_launch": [_P] * 7 + [_I] * 6 + [_P],
     "decode_demux_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "paged_decode_attention_launch": [_P] * 7 + [_I] * 9
+    + [ctypes.c_float, _I, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,9 +116,9 @@ def library() -> ctypes.CDLL:
 
 def check_inputs(name: str, dtype: torch.dtype, **tensors) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``
-    (float32 or bfloat16) on one device, with no gradient to carry (the
-    kernels have no backward yet)."""
-    if dtype not in DTYPE_CODES:
+    (float32 or bfloat16, or int32 for index tensors) on one device, with
+    no gradient to carry (the kernels have no backward yet)."""
+    if dtype not in DTYPE_CODES and dtype != torch.int32:
         raise TypeError(f"{name}: dtype {dtype} not supported; the kernel "
                         f"takes {sorted(map(str, DTYPE_CODES))}")
     devices = {t.device for t in tensors.values()}

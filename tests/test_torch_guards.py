@@ -1,7 +1,7 @@
 """Boundaries of the PyTorch port: it imports neither JAX nor the JAX
 package, it runs on the GPU unless asked for the CPU, its configs follow
-the reference's rules, its launcher refuses what it does not serve yet, and
-its weight bridge covers every parameter."""
+the reference's rules, its launcher serves the continuous modes and refuses
+what it does not serve yet, and its weight bridge covers every parameter."""
 import ast
 import dataclasses
 import os
@@ -43,8 +43,9 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
-    code = ("import sys, repro_torch.serving.engine, "
-            "repro_torch.launch.serve, repro_torch.bridge; "
+    code = ("import sys, repro_torch.serving.scheduler, "
+            "repro_torch.serving.paging, repro_torch.launch.serve, "
+            "repro_torch.bridge, repro_torch.kernels.paged_attention.ops; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad)")
@@ -97,11 +98,26 @@ def test_config_validation_uses_the_port_registry():
         torch_base.ServingConfig(page_size=0)
 
 
-@pytest.mark.parametrize("flags", [["--workload", "poisson"], ["--paged"],
-                                   ["--replicas", "2"]])
+@pytest.mark.parametrize("flags", [["--replicas", "2"],
+                                   ["--device-count", "2"]])
 def test_serve_refuses_what_it_does_not_serve(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.main(["--smoke", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--workload", "poisson"],
+    ["--workload", "poisson", "--paged", "--prefill-chunk", "2",
+     "--use-kernel", "--mux-kernel", "--fuse-demux"],
+    ["--paged"]])
+def test_serve_runs_continuous_flags_on_cpu(flags, capsys):
+    serve.main(["--smoke", "--device", "cpu", "--mux-n", "2", "--gen", "4",
+                "--num-requests", "6", *flags])
+    out = capsys.readouterr().out
+    if "poisson" in flags:
+        assert "[serve] continuous:" in out and "FAIL" not in out
+    if "--paged" in flags and "poisson" in flags:
+        assert "in use after drain" in out
 
 
 def test_serve_runs_lockstep_on_cpu(capsys):
