@@ -10,8 +10,8 @@ Phases, any failure of which ends the run with a non-zero exit:
      (sm_90a), then hold each kernel against its plain PyTorch version on
      the card (run in float32 on the same inputs), in bf16 and f32, at the
      slices' shapes and at ragged ones, and time both with CUDA events (the
-     paged attention kernel also beside ``scaled_dot_product_attention`` on
-     K/V already gathered, a yardstick the port never calls);
+     attention kernels also beside ``scaled_dot_product_attention``, a
+     yardstick the port never calls);
   3. the lock-step slice: serve ``tmux-12l-768h`` at full width and N=40 in
      bf16 (random weights from --seed) through ``Engine.generate`` with the
      fused mux, demux and decode-demux kernels on, counting each kernel's
@@ -25,7 +25,17 @@ Phases, any failure of which ends the run with a non-zero exit:
      within LOGIT_TOL for the steps no sampled token was fed back in; a
      paged run with every kernel off must give the same slot resets and
      peak pages; then a profile of one scheduler step and a short run at
-     prefill_chunk=4 (the kernel's C > 1 form).
+     prefill_chunk=4 (the kernel's C > 1 form);
+  5. the evaluation slice: ``qwen1.5-4b`` at full width, N=8, bf16 (random
+     weights from --seed), ``Backbone(use_flash=True)`` with the mux and
+     demux kernels, evaluates three batches of the retrieval task (2 x 8
+     sequences of 1024 tokens) through ``Trainer.make_eval_step`` (task
+     "lm", retrieval alpha 0.1), counting the flash, mux and demux
+     launches; the same weights on the plain path (no flash, no kernels)
+     must give batch 0's logits within LOGIT_TOL and every batch's task and
+     retrieval losses within EVAL_LOSS_TOL (the same retrieval index fed
+     to both); then eval-step times kernels on and off in turns and a
+     profile of one step.
 
 It prints one JSON line of per-kernel numbers, then the card's
 ``nvidia-smi`` name and power limit, and last a JSON line with the device.
@@ -36,6 +46,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -45,19 +56,25 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core rate
               "float32": 67e12}       # outside the tensor cores
-TOL = {"bfloat16": 1e-2, "float32": 1e-4}   # x max(1, max|plain|)
+# x max(1, max|plain|); the kernels accumulate in f32 and round their
+# output (the bf16 flash kernel also rounds P to bf16 for P.V: <= 2^-9
+# relative error per term)
+TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 LOGIT_TOL = 5e-2                      # x max|plain logits|, bf16 slice
+EVAL_LOSS_TOL = 1e-2                  # relative, eval losses kernels vs plain
 REPLACES = {
     "hadamard_mux": "src/repro/kernels/multiplex/kernel.py:60",
     "index_embed_demux": "src/repro/kernels/demux/kernel.py:85",
     "decode_demux": "src/repro/kernels/demux/kernel.py:166",
     "paged_decode_attention": "src/repro/kernels/paged_attention/kernel.py:190",
+    "flash_attention": "src/repro/kernels/attention/kernel.py:96",
 }
 SOURCES = {
     "hadamard_mux": "hadamard_mux.cu",
     "index_embed_demux": "index_embed_demux.cu",
     "decode_demux": "decode_demux.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 
@@ -65,10 +82,19 @@ def time_ms(fn, runs: int = 21, calls: int = 5, warmup: int = 3) -> float:
     """Device time of one call in ms: the median over ``runs`` of CUDA-event
     time of ``calls`` back-to-back calls, divided by ``calls``.  Each run is
     queued behind a sleep kernel, so the host's dispatch time overlaps it
-    instead of being counted as device time."""
+    instead of being counted as device time.  A call above 2 ms is timed
+    alone, 5 times, to keep the phase short."""
     import torch
     for _ in range(warmup):
         fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) > 2.0:   # a slow call: 5 runs of one call
+        runs, calls = 5, 1
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
@@ -114,7 +140,8 @@ def check_kernels(torch, gen):
         return m
 
     cases = []   # (name, shape, kernel fn, plain fn, f32 plain output, bytes, flops)
-    for b, n, l, d in ((8, 40, 1, 768), (8, 40, 104, 768), (3, 5, 7, 200)):
+    for b, n, l, d in ((8, 40, 1, 768), (8, 40, 104, 768), (3, 5, 7, 200),
+                       (2, 8, 1032, 2560)):
         x32, v32 = randn(b, n, l, d), randn(n, d)
         for dtype in (torch.bfloat16, torch.float32):
             x, v = x32.to(dtype), v32.to(dtype)
@@ -128,6 +155,7 @@ def check_kernels(torch, gen):
     demux_shapes = (("index_embed_demux", 8, 40, 1, 768, 1536),
                     ("index_embed_demux", 8, 40, 104, 768, 1536),
                     ("index_embed_demux", 3, 5, 7, 200, 300),
+                    ("index_embed_demux", 2, 8, 1024, 2560, 5120),
                     ("decode_demux", 8, 40, 1, 768, 1536),
                     ("decode_demux", 3, 5, 7, 200, 300))
     for name, b, n, l, d, hid in demux_shapes:
@@ -309,6 +337,99 @@ def check_paged_kernel(torch, gen):
     print("[kernel] library_ms of paged_decode_attention is "
           "scaled_dot_product_attention on K/V already gathered into "
           "position order; it excludes the gather")
+    return results
+
+
+def flash_cases(torch, gen):
+    """(label, q, k, v, causal, scale) on the card, float32: the
+    evaluation slice's shape (qwen1.5-4b: B 2, L 1032, H 20, hd 128), the
+    reference's test shapes, Lq != Lk, a scale override, large logits and
+    a long context."""
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    cases = []
+    for causal in (True, False):
+        q, k, v = (randn(2, 1032, 20, 128) for _ in range(3))
+        cases.append(("slice", q, k, v, causal, None))
+    for b, l, h, hd in ((1, 8, 1, 64), (2, 37, 4, 64), (1, 256, 2, 128),
+                        (1, 520, 2, 64)):
+        for causal in (True, False):
+            q, k, v = (randn(b, l, h, hd) for _ in range(3))
+            cases.append(("test shape", q, k, v, causal, None))
+    q, k, v = randn(1, 37, 2, 128), randn(1, 45, 2, 128), randn(1, 45, 2, 128)
+    cases.append(("Lq 37, Lk 45", q, k, v, True, None))
+    q = randn(1, 32, 2, 64)
+    cases.append(("scale 0.05", q, q, q, True, 0.05))
+    q = randn(1, 128, 1, 64, scale=8.0)
+    cases.append(("8 randn", q, q, q, True, None))
+    return cases
+
+
+def check_flash_kernel(torch, gen):
+    """The flash attention kernel against its plain version (in float32)
+    in bf16 and f32, and a long context (B 1, L 8192, H 20, hd 128,
+    causal) in bf16; ``library_ms`` is ``scaled_dot_product_attention``
+    with ``is_causal`` on the same inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel as flash_kernel
+    from repro_torch.kernels.attention import ref as flash_ref
+
+    cases = [(label, q, k, v, causal, scale, dtype)
+             for label, q, k, v, causal, scale in flash_cases(torch, gen)
+             for dtype in (torch.bfloat16, torch.float32)]
+    q, k, v = (torch.randn((1, 8192, 20, 128), generator=gen, device="cuda")
+               for _ in range(3))
+    cases.append(("long context", q, k, v, True, None, torch.bfloat16))
+    results = []
+    with torch.no_grad():
+        for label, q32, k32, v32, causal, scale, dtype in cases:
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
+                                             causal=causal, scale=scale)
+
+            def kern(q=q, k=k, v=v, causal=causal, scale=scale):
+                return flash_kernel.flash_attention(q, k, v, causal=causal,
+                                                    scale=scale)
+            got = kern()
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            dname = str(dtype).removeprefix("torch.")
+            tol = TOL[dname] * max(1.0, want.abs().max().item())
+            del want, got
+            ms = time_ms(kern)
+            plain_ms = time_ms(lambda: flash_ref.flash_attention(
+                q, k, v, causal=causal, scale=scale))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale))
+            b, lq, h, hd = q.shape
+            lk = k.shape[1]
+            # Work the inputs need: 4 * hd flops per (query, valid key)
+            # pair; q, k, v read and the output written once.
+            pairs = (sum(min(i + 1, lk) for i in range(lq)) if causal
+                     else lq * lk)
+            flops = 4 * hd * b * h * pairs
+            nbytes = q.element_size() * b * h * hd * (2 * lq + 2 * lk)
+            bound_ms, bound_by = bound(nbytes, flops, dname)
+            shape = dict(B=b, Lq=lq, Lk=lk, H=h, hd=hd, causal=causal,
+                         scale=scale)
+            print(f"[kernel] flash_attention {label} {shape} {dname}: "
+                  f"max_abs_err {err:.3g} (tol {tol:.3g}), {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+                  f"bound {bound_ms:.3g} ms ({bound_by})")
+            if not err <= tol:
+                raise SystemExit(f"[kernel] FAIL: flash_attention {label} "
+                                 f"{shape} {dname} disagrees with its plain "
+                                 f"version")
+            results.append(dict(
+                name="flash_attention", label=label, shape=shape,
+                dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms))
+    print("[kernel] library_ms of flash_attention is "
+          "scaled_dot_product_attention(is_causal=...) on the same inputs")
     return results
 
 
@@ -549,6 +670,18 @@ def run_paged_slice(torch, seed: int):
     return launches
 
 
+def device_rows(events, steps: int) -> list[tuple[float, str]]:
+    """(ms per step, name) of each kernel, copy or fill the device ran, by
+    name, largest first.  Only the profiler's device events count: a CPU
+    op's self device time repeats the time of the kernels it launched, so
+    summing both would count that time twice."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.self_device_time_total / 1e3 / steps, e.key)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+
+
 def profile_scheduler(torch, sched, trace, warm: int = 12, steps: int = 8):
     """Wall time of a scheduler step in steady state (host clock around
     ``steps`` steps ending in a synchronize), then where one step's device
@@ -571,9 +704,7 @@ def profile_scheduler(torch, sched, trace, warm: int = 12, steps: int = 8):
             sched.step()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    rows = sorted(((e.self_device_time_total / 1e3 / steps, e.key)
-                   for e in events if e.self_device_time_total > 0),
-                  reverse=True)
+    rows = device_rows(events, steps)
     busy = sum(t for t, _ in rows)
     lanes = int(sched.table.lane_mask().sum())
     print(f"[profile] paged scheduler step ({lanes} live lanes after "
@@ -637,9 +768,7 @@ def profile_decode(torch, eng, prompts, first, label: str, wall: float,
                              ProfilerActivity.CUDA]) as prof:
         decode_step_ms(torch, eng, state, first, steps)
     events = prof.key_averages()
-    rows = sorted(((e.self_device_time_total / 1e3 / steps, e.key)
-                   for e in events if e.self_device_time_total > 0),
-                  reverse=True)
+    rows = device_rows(events, steps)
     busy = sum(t for t, _ in rows)
     if not busy:
         print(f"[profile] {label}: device time not measured (the profiler "
@@ -655,6 +784,171 @@ def profile_decode(torch, eng, prompts, first, label: str, wall: float,
     print(f"[profile] {label}: host time per step by op (self, profiled):")
     for t, count, key in host[:8]:
         print(f"[profile]   {t:8.4f} ms  x{count:5.0f}  {key[:80]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the evaluation slice
+# ---------------------------------------------------------------------------
+
+def eval_step_ms(torch, step, state, batches, index) -> float:
+    """Host wall ms of one eval step, averaged over ``batches``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch, ix in zip(batches, index):
+        step(state, batch, None, retr_index=ix)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / len(batches) * 1e3
+
+
+def run_eval(torch, seed: int):
+    import gc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.retrieval import retrieval_index
+    from repro_torch.data import RetrievalTask, mux_batches
+    from repro_torch.kernels import _build
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    gc.collect()                 # the serving phases' models and caches
+    torch.cuda.empty_cache()
+    groups, steps, seq_len = 2, 3, 1024
+    base = get_config("qwen1.5-4b", mux_n=8)
+    cfg = dataclasses.replace(
+        base, mux=dataclasses.replace(base.mux, use_kernel=True))
+    tcfg = TrainConfig(task="lm")
+    n = cfg.mux.n
+    print(f"[eval] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim_}, vocab {cfg.vocab}, N={n}, "
+          f"{cfg.dtype}; {steps} batches of RetrievalTask(seq_len={seq_len}) "
+          f"x {groups} groups through Trainer.make_eval_step(task='lm', "
+          f"retrieval alpha {cfg.mux.retrieval_alpha})")
+    state = Trainer.init_state(cfg, tcfg, seed=seed, device="cuda",
+                               use_flash=True)
+    model = state["model"].eval()
+    batches = [{k: torch.as_tensor(v).long().cuda() for k, v in b.items()}
+               for b in mux_batches(RetrievalTask(vocab=cfg.vocab,
+                                                  seq_len=seq_len),
+                                    groups=groups, n_mux=n, steps=steps,
+                                    seed=seed)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    index = [retrieval_index(gen, groups, n, seq_len) for _ in batches]
+    step = Trainer.make_eval_step(cfg, tcfg)
+    step(state, batches[0], None, retr_index=index[0])   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    metrics = [step(state, b, None, retr_index=ix)
+               for b, ix in zip(batches, index)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[eval] {steps} eval steps in {dt:.4f} s: "
+          f"{groups * n * steps / dt:.2f} instances/s, "
+          f"{groups * n * seq_len * steps / dt:.1f} tokens/s, "
+          f"{dt / steps * 1e3:.3f} ms per step (bf16, "
+          f"{torch.cuda.get_device_name(0)}); peak memory {peak_gb:.2f} GB")
+    print(f"[eval] kernel launches in that run: {launches}")
+    want = {"flash_attention": cfg.n_layers * steps, "hadamard_mux": steps,
+            "index_embed_demux": steps}
+    if launches != want:
+        raise SystemExit(f"[eval] FAIL: launches {launches}, expected {want}")
+    for i, m in enumerate(metrics):
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"[eval] batch {i}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in vals.items()))
+        if not all(map(math.isfinite, vals.values())):
+            raise SystemExit(f"[eval] FAIL: non-finite metrics {vals}")
+
+    with torch.inference_mode():
+        logits = model(batches[0]["tokens"])["logits"]
+        shape = (groups, n, seq_len, cfg.vocab)
+        if tuple(logits.shape) != shape:
+            raise SystemExit(f"[eval] FAIL: logits {tuple(logits.shape)}, "
+                             f"expected {shape}")
+        fwd = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(batches[0]["tokens"])
+            torch.cuda.synchronize()
+            fwd.append((time.perf_counter() - t0) * 1e3)
+    print(f"[eval] forward alone (flash + kernels): "
+          f"{[round(t, 3) for t in fwd]} ms")
+
+    plain = Trainer.init_state(base, tcfg, seed=seed, device="cuda")
+    plain["model"].load_state_dict(model.state_dict())
+    plain["model"].eval()
+    plain_step = Trainer.make_eval_step(base, tcfg)
+    _build.LAUNCHES.clear()
+    plain_metrics = [plain_step(plain, b, None, retr_index=ix)
+                     for b, ix in zip(batches, index)]
+    with torch.inference_mode():
+        plain_logits = plain["model"](batches[0]["tokens"])["logits"]
+    torch.cuda.synchronize()
+    if _build.LAUNCHES:
+        raise SystemExit(f"[eval] FAIL: the plain path launched "
+                         f"{dict(_build.LAUNCHES)}")
+    err = max((logits[:, i].float() - plain_logits[:, i].float())
+              .abs().max().item() for i in range(n))
+    tol = LOGIT_TOL * plain_logits.abs().max().item()
+    agree = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
+    print(f"[eval] batch 0 logits, flash + kernels vs plain: max_abs_err "
+          f"{err:.4g} (tol {tol:.4g}), greedy tokens agree "
+          f"{agree.item():.4f}")
+    if not err <= tol:
+        raise SystemExit("[eval] FAIL: logits disagree")
+    del logits, plain_logits
+    for i, (m, pm) in enumerate(zip(metrics, plain_metrics)):
+        for key in ("task_loss", "retr_loss"):
+            got, ref = float(m[key]), float(pm[key])
+            rel = abs(got - ref) / abs(ref)
+            print(f"[eval] batch {i} {key}: flash + kernels {got:.6g}, "
+                  f"plain {ref:.6g}, relative diff {rel:.3g} "
+                  f"(tol {EVAL_LOSS_TOL})")
+            if not rel <= EVAL_LOSS_TOL:
+                raise SystemExit(f"[eval] FAIL: batch {i} {key} disagrees")
+
+    torch.cuda.empty_cache()
+    walls = {"flash + kernels": [], "plain": []}
+    runs = {"flash + kernels": (step, state), "plain": (plain_step, plain)}
+    for label in ("flash + kernels", "plain") * 2:     # in turns
+        fn, st = runs[label]
+        walls[label].append(eval_step_ms(torch, fn, st, batches, index))
+    for label, w in walls.items():
+        print(f"[eval] eval step wall ms, {label} (in turns): "
+              f"{[round(t, 3) for t in w]}")
+    del plain, plain_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_eval(torch, step, state, batches[0], index[0],
+                 statistics.median(walls["flash + kernels"]))
+    return launches
+
+
+def profile_eval(torch, step, state, batch, index, wall: float) -> None:
+    """Where one eval step's device time goes (torch.profiler), with the
+    flash kernel's share; ``wall`` is the unprofiled step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch, None, retr_index=index)
+        torch.cuda.synchronize()
+    rows = device_rows(prof.key_averages(), 1)
+    busy = sum(t for t, _ in rows)
+    if not busy:
+        print("[profile] eval step: device time not measured (the profiler "
+              "saw no device activity)")
+        return
+    flash = sum(t for t, key in rows if "flash_attention" in key)
+    print(f"[profile] eval step: {wall:.3f} ms wall (unprofiled median), "
+          f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+          f"flash_attention {flash:.3f} ms = {flash / busy:.3f} of busy")
+    for t, key in rows[:12]:
+        print(f"[profile]   {t:9.4f} ms  {key[:90]}")
 
 
 def main(argv=None) -> int:
@@ -683,23 +977,32 @@ def main(argv=None) -> int:
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    results = check_kernels(torch, gen) + check_paged_kernel(torch, gen)
+    results = (check_kernels(torch, gen) + check_paged_kernel(torch, gen)
+               + check_flash_kernel(torch, gen))
     launches = run_slice(torch, args.seed)
     launches["paged_decode_attention"] = run_paged_slice(
         torch, args.seed)["paged_decode_attention"]
+    launches["flash_attention"] = run_eval(torch, args.seed)[
+        "flash_attention"]
 
     # One entry per kernel, at the bf16 shape its slice runs most often
     # (L = 1 prefill demux, C = 1 decode demux, L = 1 decode-step mux, the
-    # paged slice's C = 1 decode with kblock_pages = 1); launches come from
-    # the lock-step slice for the mux and demux kernels (the mux and the
-    # decode demux count again in the paged slice) and from the paged
-    # slice for the paged attention.
+    # paged slice's C = 1 decode with kblock_pages = 1, the evaluation
+    # slice's causal flash attention); launches come from the lock-step
+    # slice for the mux and demux kernels (the mux and the decode demux
+    # count again in the paged slice, the mux and the index-embed demux in
+    # the evaluation slice), from the paged slice for the paged attention
+    # and from the evaluation slice for the flash attention.
     entries = []
     for name in SOURCES:
         if name == "paged_decode_attention":
             r = next(r for r in results if r["name"] == name
                      and r["dtype"] == "bfloat16" and r["label"] == "slice C1"
                      and r["shape"]["kblock"] == 1)
+        elif name == "flash_attention":
+            r = next(r for r in results if r["name"] == name
+                     and r["dtype"] == "bfloat16" and r["label"] == "slice"
+                     and r["shape"]["causal"])
         else:
             r = next(r for r in results if r["name"] == name
                      and r["dtype"] == "bfloat16" and r["shape"]["L"] == 1)

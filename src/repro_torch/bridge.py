@@ -17,7 +17,9 @@ JAX nor the reference package.  Mapping:
     ``mux.v``, ``demux.prefix_table``, norm ``scale``/``bias``, ...).
 
 A tied embedding stays tied: the reference then has no ``lm_head`` and
-neither does the state_dict.
+neither does the state_dict.  A trainer's task head ``{"w": (d,
+n_classes)}`` (cls/tag tasks) is not a backbone weight: it becomes
+``task_head.w`` in the reference's layout, for ``Trainer.load_params``.
 
 A cache pytree has the same head / scanned blocks / tail split, with one
 dict of leaves per layer (``k``/``v``/``pos`` contiguous, or
@@ -77,7 +79,8 @@ def _layers(head, blocks, tail, cfg, what: str) -> list:
 def params_from_jax(np_params: dict, cfg) -> dict[str, torch.Tensor]:
     """Reference param tree (numpy leaves) -> ``Backbone(cfg)`` state_dict
     (CPU tensors; ``load_state_dict`` copies them to the model's device and
-    keeps the model's dtype)."""
+    keeps the model's dtype), plus ``task_head.w`` when the tree has a
+    task head."""
     layers = _layers(np_params.get("head_layers", []),
                      np_params.get("blocks", []),
                      np_params.get("tail_layers", []), cfg, "param")
@@ -88,6 +91,8 @@ def params_from_jax(np_params: dict, cfg) -> dict[str, torch.Tensor]:
             _flatten(np_params[name], name + ".", out)
     for i, layer in enumerate(layers):
         _flatten(layer, f"layers.{i}.", out)
+    if "task_head" in np_params:
+        out["task_head.w"] = _tensor(np_params["task_head"]["w"])
     return out
 
 

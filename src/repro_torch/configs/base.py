@@ -226,12 +226,13 @@ class ModelConfig:
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
 
-    def attn_config(self) -> AttnConfig:
+    def attn_config(self, *, use_flash: bool = False) -> AttnConfig:
         return AttnConfig(
             dim=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim_,
             qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
-            causal=self.causal, paged_kernel=self.serving.use_kernel,
+            causal=self.causal, use_flash=use_flash,
+            paged_kernel=self.serving.use_kernel,
             kblock_pages=self.serving.kblock_pages)
 
     def layer_kinds(self) -> list[dict]:

@@ -1,1 +1,2 @@
-"""DataMUX core: the mux/demux strategy registry."""
+"""DataMUX core: the mux/demux strategy registry and the retrieval
+objective."""

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "decode_demux_launch": [_P] * 7 + [_I] * 6 + [_P],
     "paged_decode_attention_launch": [_P] * 7 + [_I] * 9
     + [ctypes.c_float, _I, _I, _P],
+    "flash_attention_launch": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

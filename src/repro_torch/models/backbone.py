@@ -45,12 +45,13 @@ class Block(nn.Module):
     """Pre-norm attention + MLP residual block."""
 
     def __init__(self, cfg: ModelConfig, kind: dict, *, generator, device,
-                 dtype):
+                 dtype, use_flash: bool = False):
         super().__init__()
         norm = make_norm(cfg.norm)
         self.norm1 = norm(cfg.d_model, device=device, dtype=dtype)
-        self.attn = Attention(cfg.attn_config(), generator=generator,
-                              device=device, dtype=dtype)
+        self.attn = Attention(cfg.attn_config(use_flash=use_flash),
+                              generator=generator, device=device,
+                              dtype=dtype)
         self.norm2 = self.mlp = None
         if kind["mlp"] == "dense":
             self.norm2 = norm(cfg.d_model, device=device, dtype=dtype)
@@ -72,9 +73,14 @@ class Block(nn.Module):
 
 class Backbone(nn.Module):
     """Weights are drawn from ``seed`` with a ``torch.Generator`` on
-    ``device`` (the GPU unless the caller asks for another device)."""
+    ``device`` (the GPU unless the caller asks for another device).
+    ``use_flash`` routes each layer's cache-free causal attention through
+    the flash kernel (``cfg.attn_config(use_flash=True)``); prefill and
+    decode, which write a cache, and bidirectional attention are
+    unaffected."""
 
-    def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
+                 use_flash: bool = False):
         super().__init__()
         device = resolve_device(device)
         g = torch.Generator(device=device).manual_seed(seed)
@@ -92,7 +98,8 @@ class Backbone(nn.Module):
             self.demux = get_demux(cfg.mux.demux).init(cfg.mux, cfg.d_model,
                                                        **kw)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, **kw) for kind in cfg.layer_kinds())
+            Block(cfg, kind, use_flash=use_flash, **kw)
+            for kind in cfg.layer_kinds())
 
     @property
     def device(self) -> torch.device:
@@ -168,7 +175,9 @@ class Backbone(nn.Module):
         """The reference's ``Backbone.apply`` (``nn.Module.apply`` is taken).
         tokens: (B, N, L) when mux active else (B, L).
 
-        Returns dict(hidden, demuxed, logits, index_embeds, cache);
+        Returns dict(hidden, demuxed, logits, index_embeds, aux, cache);
+        ``aux`` (the MoE load-balance loss) is a float32 zero for the
+        dense family;
         ``demuxed``/``logits`` are (B, N, L, ·) when mux active else
         (B, L, ·).  Passing a fresh ``cache`` (``init_cache``) makes this a
         prefill: the cache is filled in place, ready for ``decode_step``.
@@ -195,7 +204,8 @@ class Backbone(nn.Module):
                                  device=x.device).expand(b, x.shape[1])
         h = self._run_blocks(x, positions=positions, cache=cache)
 
-        out = {"hidden": h, "index_embeds": None, "cache": cache}
+        out = {"hidden": h, "index_embeds": None, "cache": cache,
+               "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
         if mux.active:
             if demux_s.uses_prefix:
                 index_embeds = h[:, :mux.n]      # p^i = h at prefix pos i

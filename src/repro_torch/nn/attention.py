@@ -3,7 +3,8 @@ reference's ``Attention`` class (``repro.nn.attention``).
 
 Modes, chosen by the arguments as in the reference:
 
-  * full sequence (training / forward):   ``cache is None``
+  * full sequence (training / forward):   ``cache is None``; with
+                ``use_flash`` and ``causal`` through the flash kernel
   * prefill:    a cache is given and L > 1 — full attention over x, and
                 K/V/positions written to cache rows [0, L)
   * decode:     a cache is given and L == 1 — K/V written at
@@ -53,6 +54,8 @@ class AttnConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     causal: bool = True
+    use_flash: bool = False     # cache-free causal attention through the
+                                # flash kernel
     paged_kernel: bool = False  # paged decode: CUDA kernel vs plain gather
     kblock_pages: int = 1       # pages the paged kernel stages at a time
     softmax_scale: float | None = None
@@ -242,7 +245,15 @@ class Attention(nn.Module):
         k = apply_rope(k, positions, cfg.rope_theta)
         n_rep = cfg.n_heads // cfg.n_kv_heads
 
-        if cache is None:
+        if cache is None and cfg.use_flash and cfg.causal:
+            # As in the reference: only the cache-free causal branch, and
+            # before the chunked one; bidirectional attention never goes
+            # to the flash kernel.
+            from repro_torch.kernels.attention import ops as flash_ops
+            out = flash_ops.flash_attention(
+                q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), causal=True,
+                scale=cfg.scale)
+        elif cache is None:
             out = _attend(q, k, v, positions, cfg, n_rep)
         elif chunk_lens is not None:
             out = self._chunked_decode(q, k, v, positions, cache,

@@ -5,7 +5,9 @@ neither JAX nor the JAX package, so on a GPU machine without JAX it runs
 alone:  ``PYTHONPATH=src python -m pytest -q --noconftest
 tests/test_torch_cuda.py``.  Tolerances: 1e-4 (f32) and 1e-2 (bf16) of
 max(1, max|plain|), the plain version run in f32 on the same inputs — the
-kernels accumulate in f32 and round only their output.  The paged
+kernels accumulate in f32 and round only their output; flash attention in
+bf16 also rounds its probabilities to bf16 for the P·V product on the
+tensor cores (at most 2^-9 relative error per term).  The paged
 attention kernel is compared on query rows with at least one valid key
 (rows with none are garbage in every implementation).
 """
@@ -13,6 +15,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.attention import kernel as flash_kernel
+from repro_torch.kernels.attention import ops as flash_ops
+from repro_torch.kernels.attention import ref as flash_ref
 from repro_torch.kernels.demux import kernel as demux_kernel
 from repro_torch.kernels.demux import ref as demux_ref
 from repro_torch.kernels.multiplex import kernel as mux_kernel
@@ -155,3 +160,55 @@ def test_paged_kernel_raises_on_what_it_does_not_take(cuda):
     args[3] = args[3].long()
     with pytest.raises(TypeError, match="int64"):
         paged_kernel.paged_decode_attention(*args, scale=1.0)
+
+
+FLASH_CARD = [  # (b, lq, lk, h, hd): the reference's test shapes, Lq != Lk
+    (1, 8, 8, 1, 64), (2, 37, 37, 4, 64), (1, 256, 256, 2, 128),
+    (1, 520, 520, 2, 64), (1, 37, 45, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", FLASH_CARD)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain_version_on_card(cuda, dtype, tol, case,
+                                                    causal):
+    b, lq, lk, h, hd = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((b, lq, h, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((b, lk, h, hd), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
+                                     causal=causal)
+    _build.LAUNCHES.clear()
+    got = flash_ops.flash_attention(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"flash_attention": 1}
+    assert (got - want).abs().max().item() <= tol * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_scale_override_and_large_logits(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((1, 32, 2, 64), generator=g, device=cuda)
+    got = flash_kernel.flash_attention(q, q, q, causal=True, scale=0.05)
+    want = flash_ref.flash_attention(q, q, q, causal=True, scale=0.05)
+    assert (got - want).abs().max().item() <= 1e-4
+    q = 8.0 * torch.randn((1, 128, 1, 64), generator=g, device=cuda)
+    got = flash_kernel.flash_attention(q, q, q, causal=True)
+    assert bool(torch.isfinite(got).all())
+    want = flash_ref.flash_attention(q, q, q, causal=True)
+    assert (got - want).abs().max().item() <= 1e-4 * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_ops_raises_on_what_the_kernel_does_not_take(cuda):
+    q = torch.randn((1, 16, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        flash_ops.flash_attention(q, q, q)
+    q = torch.randn((1, 16, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float16"):
+        flash_ops.flash_attention(q, q, q)

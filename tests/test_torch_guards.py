@@ -45,7 +45,9 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.serving.scheduler, "
             "repro_torch.serving.paging, repro_torch.launch.serve, "
-            "repro_torch.bridge, repro_torch.kernels.paged_attention.ops; "
+            "repro_torch.bridge, repro_torch.kernels.paged_attention.ops, "
+            "repro_torch.kernels.attention.ops, repro_torch.data, "
+            "repro_torch.training.trainer; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad)")
