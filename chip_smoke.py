@@ -7,9 +7,13 @@ Phases, any failure of which ends the run with a non-zero exit:
 
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc
-     (sm_90a), then hold each kernel against its plain PyTorch version on
-     the card (run in float32 on the same inputs), in bf16 and f32, at the
-     slices' shapes and at ragged ones, and time both with CUDA events (the
+     (sm_90a) and print each one's registers and spills (ptxas -v) and
+     its HGMMA / UTMALDG count (cuobjdump -sass), failing if a Hopper
+     bf16 body (TMA + wgmma) has none; then hold each kernel against its
+     plain PyTorch version on the card (run in float32 on the same
+     inputs), in bf16 and f32, at the slices' shapes and at ragged ones
+     (flash attention also with keys past Lk planted in memory), naming
+     the body the launch plan chose, and time both with CUDA events (the
      attention kernels also beside ``scaled_dot_product_attention``, a
      yardstick the port never calls);
   3. the lock-step slice: serve ``tmux-12l-768h`` at full width and N=40 in
@@ -47,6 +51,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -78,6 +83,13 @@ SOURCES = {
 }
 
 
+# The bf16 bodies redesigned for Hopper (TMA + wgmma): their SASS must
+# hold HGMMA and UTMALDG instructions.
+REDESIGNED_BODIES = ("flash_attention_wgmma_kernel<64>",
+                     "flash_attention_wgmma_kernel<128>",
+                     "demux_gemm_kernel", "demux_lane_kernel")
+
+
 def time_ms(fn, runs: int = 21, calls: int = 5, warmup: int = 3) -> float:
     """Device time of one call in ms: the median over ``runs`` of CUDA-event
     time of ``calls`` back-to-back calls, divided by ``calls``.  Each run is
@@ -107,6 +119,55 @@ def time_ms(fn, runs: int = 21, calls: int = 5, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_attention_wgmma_kernel<128>`` from its mangled name: the
+    last of the length-prefixed names, then a template argument."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while (m := re.match(r"\d+", mangled[i:])):
+        n = int(m.group())
+        name = mangled[i + m.end():i + m.end() + n]
+        i += m.end() + n
+    args = {"ILi64E": "<64>", "ILi128E": "<128>", "I13__nv_bfloat16E":
+            "<bf16>", "IfE": "<float>"}
+    return name + next((v for k, v in args.items()
+                        if mangled.startswith(k, i)), "")
+
+
+def report_build(lib, build) -> None:
+    """Per kernel: ptxas's registers, spills and warnings (-Xptxas -v), and
+    the counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
+    library's SASS (cuobjdump -sass).  Fails if a redesigned bf16 body has
+    none of either."""
+    src = name = None
+    for line in build.ptxas_log(lib).read_text().splitlines():
+        if line.startswith("== "):
+            src = line[3:]
+        elif m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, spills = kernel_name(m.group(1)), ""
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                            r"spill loads", line):
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        elif m := re.search(r"Used (\d+) registers", line):
+            print(f"[build] {src} {name}: {m.group(1)} registers, {spills}")
+        elif "(C7" in line:
+            print(f"[build] {src} ptxas: {line.split(':', 1)[-1].strip()}")
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = kernel_name(part.split(None, 1)[0])
+        counts[name] = (len(re.findall(r"\bHGMMA\.", part)),
+                        len(re.findall(r"\bUTMALDG\.", part)))
+    for name, (hgmma, utma) in sorted(counts.items()):
+        print(f"[build] sass {name}: HGMMA {hgmma}, UTMALDG {utma}")
+    for name in REDESIGNED_BODIES:
+        if not all(counts.get(name, (0, 0))):
+            raise SystemExit(f"[build] FAIL: {name} has no HGMMA or no "
+                             f"UTMALDG in its SASS")
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -156,6 +217,7 @@ def check_kernels(torch, gen):
                     ("index_embed_demux", 8, 40, 104, 768, 1536),
                     ("index_embed_demux", 3, 5, 7, 200, 300),
                     ("index_embed_demux", 2, 8, 1024, 2560, 5120),
+                    ("index_embed_demux", 3, 3, 17, 96, 160),
                     ("decode_demux", 8, 40, 1, 768, 1536),
                     ("decode_demux", 3, 5, 7, 200, 300))
     for name, b, n, l, d, hid in demux_shapes:
@@ -177,7 +239,10 @@ def check_kernels(torch, gen):
                           + b * n * l * d)
             flops = b * (2 * l * d * hid + 2 * n * d * hid
                          + 2 * n * l * hid * d)
-            cases.append((name, dict(B=b, N=n, L=l, d=d, H=hid), dtype,
+            body = (demux_kernel.plan(b, l, n, d, hid, dtype).body
+                    if name == "index_embed_demux" else "cluster")
+            cases.append((name, dict(B=b, N=n, L=l, d=d, H=hid, body=body),
+                          dtype,
                           lambda a=(h, p, w1, b1, w2, b2), fn=fn: fn(*a),
                           lambda m=plain, h=h, p=p:
                           demux_ref.index_embed_demux(m, h, p),
@@ -357,13 +422,33 @@ def flash_cases(torch, gen):
         for causal in (True, False):
             q, k, v = (randn(b, l, h, hd) for _ in range(3))
             cases.append(("test shape", q, k, v, causal, None))
-    q, k, v = randn(1, 37, 2, 128), randn(1, 45, 2, 128), randn(1, 45, 2, 128)
-    cases.append(("Lq 37, Lk 45", q, k, v, True, None))
+    for hd in (64, 128):
+        q, k, v = randn(1, 37, 2, hd), randn(1, 45, 2, hd), randn(1, 45, 2, hd)
+        for causal in (True, False):
+            cases.append(("Lq 37, Lk 45", q, k, v, causal, None))
+    # Lk = 200 is not a multiple of the key tile (96); PLANTED marks K and V
+    # that are followed in memory by rows of 1e4.
+    q, k, v = randn(1, 200, 2, 128), randn(1, 200, 2, 128), \
+        randn(1, 200, 2, 128)
+    for causal in (True, False):
+        cases.append((PLANTED, q, k, v, causal, None))
     q = randn(1, 32, 2, 64)
     cases.append(("scale 0.05", q, q, q, True, 0.05))
     q = randn(1, 128, 1, 64, scale=8.0)
     cases.append(("8 randn", q, q, q, True, None))
     return cases
+
+
+PLANTED = "keys past Lk planted"
+
+
+def planted(torch, t):
+    """t (1, L, H, hd) as the first L rows of a buffer whose next 64 rows
+    hold 1e4: keys past Lk that the kernel must not count."""
+    buf = torch.full((1, t.shape[1] + 64, *t.shape[2:]), 1e4, dtype=t.dtype,
+                     device=t.device)
+    buf[:, :t.shape[1]] = t
+    return buf[:, :t.shape[1]]
 
 
 def check_flash_kernel(torch, gen):
@@ -386,6 +471,8 @@ def check_flash_kernel(torch, gen):
     with torch.no_grad():
         for label, q32, k32, v32, causal, scale, dtype in cases:
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            if label == PLANTED:
+                k, v = planted(torch, k), planted(torch, v)
             want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
                                              causal=causal, scale=scale)
 
@@ -414,7 +501,8 @@ def check_flash_kernel(torch, gen):
             nbytes = q.element_size() * b * h * hd * (2 * lq + 2 * lk)
             bound_ms, bound_by = bound(nbytes, flops, dname)
             shape = dict(B=b, Lq=lq, Lk=lk, H=h, hd=hd, causal=causal,
-                         scale=scale)
+                         scale=scale, body=flash_kernel.plan(
+                             b, lq, lk, h, hd, dtype).body)
             print(f"[kernel] flash_attention {label} {shape} {dname}: "
                   f"max_abs_err {err:.3g} (tol {tol:.3g}), {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
@@ -973,8 +1061,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.build(verbose=True)
+    lib = _build.build(verbose=True)
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
+    report_build(lib, _build)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     results = (check_kernels(torch, gen) + check_paged_kernel(torch, gen)

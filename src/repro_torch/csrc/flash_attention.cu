@@ -21,45 +21,71 @@
 // hd 128, causal, bf16) the 4 * hd flops per valid (query, key) pair are
 // 10.9 GFLOP per call (0.011 ms at the bf16 tensor-core rate) against 42 MB
 // of q, k, v and out (0.013 ms at 3.35 TB/s): the two bounds are close, and
-// at longer sequences the flops bound alone.
+// at longer sequences the flops bound alone.  So the bf16 body is built for
+// the tensor cores' full rate, which only `wgmma` reaches.
 //
-// Shared design: one block per (head, batch row, 64-row query tile),
-// reading q, k and v through their strides straight from (B, L, H, hd), so
-// none of the TPU wrapper's fold / transpose / pad copies exist.  The block
-// walks the key axis in 64-key tiles from tile 0 upwards -- the loop inside
-// the block takes the place of the TPU's sequential K grid axis -- with the
-// running max and sum of each query row in registers, reduced across the
-// threads that share the row by warp shuffles.  Under `causal` the loop
-// stops at the tile holding the block's last diagonal key; the TPU kernel
-// streams the masked tiles as zeros, so the function is the same.  Tile 0
-// always holds a valid key for every real row, so an all-masked tile never
-// comes first (its p = exp(0) = 1 would otherwise count).  Query tiles are
-// dispatched heaviest first (blockIdx.z counts down the tiles) so that the
-// long causal rows do not start last.
+// Shared design: one block per (head, batch row, query tile), reading q, k
+// and v through their strides straight from (B, L, H, hd), so none of the
+// TPU wrapper's fold / transpose / pad copies exist.  The block walks the
+// key axis in tiles from tile 0 upwards -- the loop inside the block takes
+// the place of the TPU's sequential K grid axis -- with the running max
+// and sum of each query row in registers.  Under `causal` the loop stops
+// at the tile holding the block's last diagonal key; the TPU kernel streams
+// the masked tiles as zeros, so the function is the same.  Tile 0 always
+// holds a valid key for every row that is written, so an all-masked tile
+// never comes first (its p = exp(0) = 1 would otherwise count).  Query
+// tiles are dispatched heaviest first (blockIdx.z == 0 holds the last
+// query rows) so that the long causal rows do not start last.  The launch plan (tile sizes, ring
+// stages, threads, shared memory) is computed in Python
+// (repro_torch/kernels/attention/kernel.py: `plan`) and checked here
+// against what each body was compiled for.
 //
-// bf16 (the evaluation path): 4 warps, 16 query rows each, on the tensor
-// cores with `mma.sync.m16n8k16` (bf16 in, float32 accumulators).  Q, K and
-// V tiles stay bf16 in shared memory (rows padded by 16 bytes, so the
-// 8 rows an `ldmatrix` reads fall in distinct banks); K and V are double-
-// buffered with `cp.async`, the next tile's copy in flight while the
-// current one is consumed.  Each warp keeps its Q fragments, its 16 x 64
-// score tile and its 16 x hd float32 O accumulator in registers; the score
-// accumulators are laid out as the A operand of the P.V product, so P
-// never goes through shared memory.
+// bf16 (the evaluation path), warp-specialised in the manner of
+// FlashAttention-3: a block of 384 threads covers a 128-row query tile.
+//   - Warpgroup 2 is the producer: one thread issues TMA loads (4-D tensor
+//     maps over (B, L, H, hd), 64-column boxes with the 128-byte swizzle)
+//     of Q once and of 96-key K and V tiles into a 3-stage ring, each
+//     stage with full and empty mbarriers; `setmaxnreg` drops it to 24
+//     registers.
+//   - Warpgroups 0 and 1 each own 64 query rows and rise to 240
+//     registers.  S = Q K^T is one `wgmma` chain (m64n96k16, both operands
+//     K-major in shared memory); the online softmax runs in float32 on the
+//     accumulators (log2 units, ex2.approx); P is packed to bf16 in
+//     registers in the A-fragment layout and O += P V is a second `wgmma`
+//     chain with A from registers and V N-major in shared memory (the
+//     transposed-B mode of 16-bit types).  Tile kt's S is issued together
+//     with tile kt-1's P V, so a warpgroup's softmax overlaps its own
+//     P V, and the two warpgroups take turns issuing (named barriers), so
+//     one's softmax overlaps the other's products.  A K stage is freed as
+//     soon as its S is computed, a V stage after its P V.
+//   - 96-key tiles: with 128, S (64 registers), P (32) and O (64) live at
+//     once made ptxas spill P and serialise every wgmma (warning C7512),
+//     whatever the setmaxnreg count; 64 and 96 do not spill, and on an
+//     H100 96 ran faster than 64 and 128 at the evaluation shape and at
+//     L 8192.
+//   - Query tiles are laid from the end of the sequence, so the ragged
+//     one is the first (rows below 0 read TMA's zeros, are masked as
+//     keys-after-query and never written): under `causal` it does the
+//     least work, where a ragged last tile would do the most.
+//   - TMA fills keys past Lk with zeros, which would score 0 and count:
+//     they are masked explicitly, like the causal upper triangle, on the
+//     tiles that reach past Lk or the diagonal.
+// Shared memory: Q 32 KB + 3 stages x (K + V) 24 KB each at hd 128 (177 KB),
+// one block per SM.
 //
 // float32: no tensor-core path keeps float32 products, so 256 threads work
-// on CUDA cores: tiles converted to float32 in shared memory, thread
-// (rg, cg) = (tid / 16, tid % 16) scoring rows 4 rg .. 4 rg + 3 against
-// keys cg + 16 j (keys interleaved so that a quarter-warp's 16-byte reads
-// of K fall in distinct banks) and holding a 4-row register tile of O.
-//
-// Known weakness, not fixed here: `mma.sync` reaches only part of the
-// tensor cores' rate; `wgmma` with a TMA ring of K/V tiles and a producer
-// warp is later work.
+// on CUDA cores, 64-row query tiles against 64-key tiles: tiles converted
+// to float32 in shared memory, thread (rg, cg) = (tid / 16, tid % 16)
+// scoring rows 4 rg .. 4 rg + 3 against keys cg + 16 j (keys interleaved so
+// that a quarter-warp's 16-byte reads of K fall in distinct banks) and
+// holding a 4-row register tile of O; the next tile is loaded into
+// registers while the current one is consumed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -284,279 +310,340 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16: warp-specialised TMA + wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), float32 d.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as a bf16 pair, `lo` in the low half (the lower index).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of a (., L, H, hd) tensor into a 64 x (hd + 8)
-// shared tile; rows past L become zeros.
-template <int HD>
-__device__ __forceinline__ void load_tile_async(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ base, int row0,
-    int L, size_t row_stride) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kMmaThreads) {
-    const int row = i / kChunks, c = i % kChunks;
-    const bool ok = row0 + row < L;
-    cp_async16(dst + row * (HD + 8) + c * 8,
-               base + (size_t)(ok ? row0 + row : 0) * row_stride + c * 8, ok);
-  }
-}
+constexpr int kWgBQ = 128;     // query rows per block: 2 consumers x 64
+constexpr int kWgBK = 96;      // keys per K/V tile
+constexpr int kStages = 3;     // depth of the K/V ring
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kWgThreads = (kConsumers + 1) * 128;
 
 template <int HD>
-constexpr size_t mma_smem_bytes() {  // Q, two stages of K and of V
-  return 5 * 64 * (HD + 8) * sizeof(__nv_bfloat16);
-}
+struct WgLayout {
+  static constexpr int kQ = kWgBQ * HD * 2;   // bytes of the Q tile
+  static constexpr int kKV = kWgBK * HD * 2;  // bytes of one K or V tile
+  static constexpr int kBars = 1 + 4 * kStages;
+  // 1024 bytes of slack to align the tiles to the swizzle period.
+  static constexpr size_t kBytes =
+      1024 + kQ + 2 * kStages * kKV + kBars * sizeof(uint64_t);
+};
 
-// Thread layout of an m16n8 fragment: lane = 4 g + t holds rows g and g + 8,
-// columns 2 t and 2 t + 1 of each 8-wide tile.
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+__global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
+    const __grid_constant__ CUtensorMap mq,
+    const __grid_constant__ CUtensorMap mk,
+    const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ out,
     int Lq, int Lk, int H, float scale, int causal) {
-  constexpr int kS = HD + 8;   // element stride of a staged row
-  constexpr int kT = 64 * kS;  // elements of one staged tile
-  constexpr int kKS = HD / 16; // k-steps of Q K^T
-  constexpr int kON = HD / 8;  // 8-column tiles of O
+  using namespace hopper;
+  using S = WgLayout<HD>;
+  constexpr int kBoxes = HD / 64;  // 128-byte column boxes per row
+  constexpr int kChunks = kWgBK / 16;  // 16-key steps of P V
 
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* ks = qs + kT;      // stages 0, 1
-  __nv_bfloat16* vs = ks + 2 * kT;  // stages 0, 1
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);    // box c at c * kWgBQ * 128
+  uint8_t* ks = qs + S::kQ;             // stage s at s * S::kKV, box c
+  uint8_t* vs = ks + kStages * S::kKV;  // at c * kWgBK * 128 within it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * S::kKV);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + kStages;
+  uint64_t* v_full = k_empty + kStages;
+  uint64_t* v_empty = v_full + kStages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (int)(gridDim.z - 1 - blockIdx.z) * 64;
-  const size_t rs = (size_t)H * HD;
-  const __nv_bfloat16* qb = q + ((size_t)b * Lq * H + h) * HD;
-  const __nv_bfloat16* kb = k + ((size_t)b * Lk * H + h) * HD;
-  const __nv_bfloat16* vb = v + ((size_t)b * Lk * H + h) * HD;
+  // Query tiles end at Lq, Lq - 128, ...: the ragged one comes first
+  // (q0 < 0; its rows below 0 read zeros and are never written), where
+  // the causal mask leaves least work.  blockIdx.z == 0 is the heaviest.
+  const int q0 = Lq - (int)(blockIdx.z + 1) * kWgBQ;
+  int n_kt = (Lk + kWgBK - 1) / kWgBK;
+  if (causal) n_kt = min(n_kt, (q0 + kWgBQ - 1) / kWgBK + 1);
 
-  int n_kt = (Lk + 63) / 64;
-  if (causal) n_kt = min(n_kt, (min(q0 + 64, Lq) - 1) / 64 + 1);
-
-  load_tile_async<HD>(qs, qb, q0, Lq, rs);
-  load_tile_async<HD>(ks, kb, 0, Lk, rs);
-  load_tile_async<HD>(vs, vb, 0, Lk, rs);
-  cp_async_commit();
-
-  const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
-  uint32_t qf[kKS][4];
-  float o[kON][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < kON; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_kt) {
-      load_tile_async<HD>(ks + (st ^ 1) * kT, kb, (kt + 1) * 64, Lk, rs);
-      load_tile_async<HD>(vs + (st ^ 1) * kT, vb, (kt + 1) * 64, Lk, rs);
-      cp_async_commit();
-      cp_async_wait<1>();  // all but the tile just issued have landed
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, kConsumers * 4);  // one arrival per warp
+      mbar_init(v_empty + s, kConsumers * 4);
     }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kKS; ++kk)
-        ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * kS + kk * 16 +
-                                (lane / 16) * 8);
-    }
-    const __nv_bfloat16* kst = ks + st * kT;
-    const __nv_bfloat16* vst = vs + st * kT;
-
-    // S = Q K^T: 16 rows x 64 keys per warp, eight 8-key tiles.
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKS; ++kk)
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t kf[4];  // B fragments of key tiles j and j + 1
-        const int mi = lane / 8;
-        ldmatrix_x4(kf, kst + (j * 8 + (mi / 2) * 8 + lane % 8) * kS +
-                            kk * 16 + (mi % 2) * 8);
-        mma_bf16(s[j], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[j + 1], qf[kk], kf[2], kf[3]);
-      }
-
-    // Online softmax over this tile, rows `row` (e < 2) and `row + 8`.
-    const int k0 = kt * 64;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const bool keep = key < Lk && (!causal || key <= row + (e / 2) * 8);
-        s[j][e] = keep ? s[j][e] * scale : kNegInf;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(~0u, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(~0u, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e / 2]);
-        sum[e / 2] += s[j][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(~0u, sum[i], 1);
-      sum[i] += __shfl_xor_sync(~0u, sum[i], 2);
-      l[i] = l[i] * alpha[i] + sum[i];
-    }
-#pragma unroll
-    for (int n = 0; n < kON; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V, 16 keys per k-step: score tiles 2 j2 and 2 j2 + 1 are the
-    // A fragment as they lie in registers.
-#pragma unroll
-    for (int j2 = 0; j2 < 4; ++j2) {
-      const uint32_t pf[4] = {
-          pack_bf16(s[2 * j2][0], s[2 * j2][1]),
-          pack_bf16(s[2 * j2][2], s[2 * j2][3]),
-          pack_bf16(s[2 * j2 + 1][0], s[2 * j2 + 1][1]),
-          pack_bf16(s[2 * j2 + 1][2], s[2 * j2 + 1][3])};
-#pragma unroll
-      for (int n = 0; n < kON; n += 2) {
-        uint32_t vf[4];  // B fragments of O column tiles n and n + 1
-        const int mi = lane / 8;
-        ldmatrix_x4_trans(vf, vst + (j2 * 16 + (mi % 2) * 8 + lane % 8) * kS +
-                                  n * 8 + (mi / 2) * 8);
-        mma_bf16(o[n], pf, vf[0], vf[1]);
-        mma_bf16(o[n + 1], pf, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's copy
+    fence_barrier_init();
   }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer ----------------------------------------------------------
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(q_full, S::kQ);
+      for (int c = 0; c < kBoxes; ++c)
+        tma_load_4d(qs + c * kWgBQ * 128, &mq, q_full, c * 64, h, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t ph = (kt / kStages) & 1;
+        mbar_wait(k_empty + s, ph ^ 1);
+        mbar_arrive_expect_tx(k_full + s, S::kKV);
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load_4d(ks + s * S::kKV + c * kWgBK * 128, &mk, k_full + s,
+                      c * 64, h, kt * kWgBK, b);
+        mbar_wait(v_empty + s, ph ^ 1);
+        mbar_arrive_expect_tx(v_full + s, S::kKV);
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load_4d(vs + s * S::kKV + c * kWgBK * 128, &mv, v_full + s,
+                      c * 64, h, kt * kWgBK, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each -------------------------------------
+    // Tile kt's S = Q K^T is issued together with tile kt-1's O += P V, so
+    // the softmax of tile kt runs while P V is still on the tensor cores;
+    // and the two consumers take turns issuing (named barriers 1 and 2),
+    // so one's softmax overlaps the other's products.
+    setmaxnreg_inc<240>();
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int wg_row0 = q0 + wg * 64;
+    const int r0 = wg_row0 + warp * 16 + g;  // this thread's rows: r0, r0 + 8
+    const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+    const uint8_t* qw = qs + wg * 64 * 128;
+    const int my_turn = 1 + wg, other_turn = 2 - wg;
+    float o[HD / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float sc[kWgBK / 2];  // S of the current tile: n8-tile j holds keys
+                          // 8 j + 2 t, +1 of rows r0 (0, 1), r0 + 8 (2, 3)
+    uint32_t pf[kChunks][4];  // P of the previous tile, bf16, A fragments
+
+    // S = Q K^T over the stage's kWgBK keys (one wgmma chain, not waited).
+    auto issue_qk = [&](int s) {
+      const uint64_t qd = opaque(smem_desc(qw, 0, 1024));
+      const uint64_t kd = opaque(smem_desc(ks + s * S::kKV, 0, 1024));
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int col = (kk % 4) * 32;  // bytes into the 128-byte row
+        const uint64_t a = desc_add(qd, (kk / 4) * kWgBQ * 128 + col);
+        wgmma_ss_n96(sc, a, desc_add(kd, (kk / 4) * kWgBK * 128 + col), kk);
+      }
+      wgmma_commit();
+    };
+    // O += P V: key chunk c (16 keys) is score tiles 2c and 2c + 1, which
+    // lie in registers as the A fragment of rows r0 and r0 + 8.  V is
+    // N-major: 128-byte rows of one key, column boxes kWgBK rows apart.
+    auto issue_pv = [&](int s) {
+      const uint64_t vd =
+          opaque(smem_desc(vs + s * S::kKV, kWgBK * 128, 1024));
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const uint64_t dv = desc_add(vd, c * 16 * 128);
+        if constexpr (HD == 64)
+          wgmma_rs_n64<1>(o, pf[c], dv, 1);
+        else
+          wgmma_rs_n128<1>(o, pf[c], dv, 1);
+      }
+      wgmma_commit();
+    };
+    // Online softmax over tile kt's S (masked where it reaches past Lk or
+    // the diagonal); leaves P = exp(S - m) in sc, returns alpha per row.
+    auto softmax = [&](int kt, float (&alpha)[2]) {
+      const int k0 = kt * kWgBK;
+      const bool edge = k0 + kWgBK > Lk || (causal && k0 + kWgBK - 1 > wg_row0);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kWgBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * sl2;
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            if (key >= Lk || (causal && key > r0 + 8 * (e >> 1)))
+              x = kNegInf;
+          }
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(~0u, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(~0u, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = exp2_approx(m[i] - m_new);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kWgBK / 2; ++j) {
+        sc[j] = exp2_approx(sc[j] - m[(j >> 1) & 1]);
+        sum[(j >> 1) & 1] += sc[j];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(~0u, sum[i], 1);
+        sum[i] += __shfl_xor_sync(~0u, sum[i], 2);
+        l[i] = l[i] * alpha[i] + sum[i];
+      }
+    };
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pf[c][i] = pack_bf16(sc[8 * c + 2 * i], sc[8 * c + 2 * i + 1]);
+    };
+    auto retire_pv = [&]() {  // after the wait that retires a P V chain
+      fence_regs(o);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) fence_regs(pf[c]);
+    };
+
+    if (wg == 1) named_bar_arrive(1, 256);  // consumer 0 issues first
+    mbar_wait(q_full, 0);
+    float alpha[2];
+    mbar_wait(k_full, 0);
+    named_bar_sync(my_turn, 256);
+    wgmma_fence();
+    issue_qk(0);
+    named_bar_arrive(other_turn, 256);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(k_empty);
+    softmax(0, alpha);  // o is 0: alpha unused
+    pack_p();
+    for (int kt = 1; kt < n_kt; ++kt) {
+      const int s = kt % kStages, sp = (kt - 1) % kStages;
+      mbar_wait(k_full + s, (kt / kStages) & 1);
+      mbar_wait(v_full + sp, ((kt - 1) / kStages) & 1);
+      named_bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_qk(s);
+      issue_pv(sp);  // tile kt-1's P V
+      named_bar_arrive(other_turn, 256);
+      wgmma_wait<1>();  // S of tile kt is ready
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(k_empty + s);
+      softmax(kt, alpha);
+      wgmma_wait<0>();  // P V of tile kt-1 has retired
+      retire_pv();
+      if (lane == 0) mbar_arrive(v_empty + sp);
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      pack_p();
+    }
+    const int sl = (n_kt - 1) % kStages;
+    mbar_wait(v_full + sl, ((n_kt - 1) / kStages) & 1);
+    named_bar_sync(my_turn, 256);
+    wgmma_fence();
+    issue_pv(sl);
+    named_bar_arrive(other_turn, 256);
+    wgmma_wait<0>();
+    retire_pv();
+    if (lane == 0) mbar_arrive(v_empty + sl);
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row + 8 * i;
-    if (r >= Lq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = out + ((size_t)b * Lq + r) * rs + (size_t)h * HD;
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r < 0) continue;
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      __nv_bfloat16* orow =
+          out + ((size_t)b * Lq + r) * H * HD + (size_t)h * HD;
 #pragma unroll
-    for (int n = 0; n < kON; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          pack_bf16(o[n][2 * i] / denom, o[n][2 * i + 1] / denom);
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
+            pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+    }
   }
 }
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, int threads, size_t smem, const void* q,
-           const void* k, const void* v, void* out, int B, int Lq, int Lk,
-           int H, float scale, int causal, cudaStream_t stream) {
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int Lq, int Lk, int H, float scale, int causal,
+               cudaStream_t stream) {
+  auto kernel = flash_attention_f32_kernel<HD>;
+  const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, B, (Lq + kBQ - 1) / kBQ);
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Lq, Lk, H, scale,
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Lq, Lk, H,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// Tensor map over a (B, L, H, hd) bf16 tensor: one head's rows, `rows` at
+// a time, in 64-column boxes.
+template <int HD>
+int head_map(CUtensorMap* map, const void* base, int B, int L, int H,
+             int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)H * HD * 2;
+  const cuuint64_t strides[3] = {HD * 2, row, row * L};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return hopper::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                                 base, dims, strides, box);
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int B, int Lq, int Lk, int H, float scale, int causal,
+                 cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int err = head_map<HD>(&mq, q, B, Lq, H, kWgBQ);
+  if (!err) err = head_map<HD>(&mk, k, B, Lk, H, kWgBK);
+  if (!err) err = head_map<HD>(&mv, v, B, Lk, H, kWgBK);
+  if (err) return err;
+  auto kernel = flash_attention_wgmma_kernel<HD>;
+  const size_t smem = WgLayout<HD>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (Lq + kWgBQ - 1) / kWgBQ);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Lq, Lk, H, scale,
       causal);
   return (int)cudaGetLastError();
 }
 
+// Whether the plan computed in Python is the one this body was built for.
+bool plan_matches(int q_tile, int k_tile, int stages, int threads,
+                  long long smem, int want_q, int want_k, int want_stages,
+                  int want_threads, size_t want_smem) {
+  return q_tile == want_q && k_tile == want_k && stages == want_stages &&
+         threads == want_threads && smem == (long long)want_smem;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128.  Returns the
+// dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128.  body: 0 = CUDA cores
+// (float32), 1 = TMA + wgmma (bf16); q_tile, k_tile, stages, threads and
+// smem are the plan's, refused unless they are the body's.  Returns the
 // cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int dtype,
                                       int B, int Lq, int Lk, int H, int hd,
-                                      float scale, int causal, void* stream) {
+                                      float scale, int causal, int body,
+                                      int q_tile, int k_tile, int stages,
+                                      int threads, long long smem,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || Lq < 1 || Lk < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  using bf16 = __nv_bfloat16;
-  if (dtype == 0 && hd == 64)
-    return launch<float>(flash_attention_f32_kernel<64>, kThreads,
-                         smem_bytes<64>(), q, k, v, out, B, Lq, Lk, H, scale,
-                         causal, s);
-  if (dtype == 0 && hd == 128)
-    return launch<float>(flash_attention_f32_kernel<128>, kThreads,
-                         smem_bytes<128>(), q, k, v, out, B, Lq, Lk, H,
-                         scale, causal, s);
-  if (dtype == 1 && hd == 64)
-    return launch<bf16>(flash_attention_mma_kernel<64>, kMmaThreads,
-                        mma_smem_bytes<64>(), q, k, v, out, B, Lq, Lk, H,
-                        scale, causal, s);
-  if (dtype == 1 && hd == 128)
-    return launch<bf16>(flash_attention_mma_kernel<128>, kMmaThreads,
-                        mma_smem_bytes<128>(), q, k, v, out, B, Lq, Lk, H,
-                        scale, causal, s);
+  if (dtype == 0 && body == 0) {
+    if (hd == 64 && plan_matches(q_tile, k_tile, stages, threads, smem, kBQ,
+                                 kBK, 1, kThreads, smem_bytes<64>()))
+      return launch_f32<64>(q, k, v, out, B, Lq, Lk, H, scale, causal, s);
+    if (hd == 128 && plan_matches(q_tile, k_tile, stages, threads, smem, kBQ,
+                                  kBK, 1, kThreads, smem_bytes<128>()))
+      return launch_f32<128>(q, k, v, out, B, Lq, Lk, H, scale, causal, s);
+  }
+  if (dtype == 1 && body == 1) {
+    if (hd == 64 &&
+        plan_matches(q_tile, k_tile, stages, threads, smem, kWgBQ, kWgBK,
+                     kStages, kWgThreads, WgLayout<64>::kBytes))
+      return launch_wgmma<64>(q, k, v, out, B, Lq, Lk, H, scale, causal, s);
+    if (hd == 128 &&
+        plan_matches(q_tile, k_tile, stages, threads, smem, kWgBQ, kWgBK,
+                     kStages, kWgThreads, WgLayout<128>::kBytes))
+      return launch_wgmma<128>(q, k, v, out, B, Lq, Lk, H, scale, causal, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

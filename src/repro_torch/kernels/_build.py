@@ -39,11 +39,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "hadamard_mux_launch": [_P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I,
                             _P],
-    "index_embed_demux_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "index_embed_demux_launch": [_P] * 9 + [_I] * 11 + [_P],
     "decode_demux_launch": [_P] * 7 + [_I] * 6 + [_P],
     "paged_decode_attention_launch": [_P] * 7 + [_I] * 9
     + [ctypes.c_float, _I, _I, _P],
-    "flash_attention_launch": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    "flash_attention_launch": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I]
+    + [_I] * 5 + [ctypes.c_longlong, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,8 +72,9 @@ def _sources() -> tuple[list[Path], str]:
 def build(verbose: bool = False) -> Path:
     """Compile every ``csrc/*.cu`` (in parallel) and link one shared
     library; returns its path.  An existing library for the same sources is
-    reused.  ``verbose`` adds ``-Xptxas -v`` and prints each kernel's
-    registers and shared memory."""
+    reused.  ``verbose`` adds ``-Xptxas -v`` and writes each source's report
+    of registers, shared memory and spills beside the library
+    (``ptxas_log(path)``)."""
     sources, digest = _sources()
     lib = BUILD_DIR / f"libdatamux_kernels_{digest}.so"
     if lib.exists() and not verbose:
@@ -86,13 +88,12 @@ def build(verbose: bool = False) -> Path:
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(sources, objs)]
-        failed = []
+        failed, reports = [], []
         for s, proc in zip(sources, procs):
             out, _ = proc.communicate()
             if proc.returncode:
                 failed.append(f"{s.name}:\n{out}")
-            elif verbose:
-                print(f"[build] {s.name}\n{out}", end="")
+            reports.append(f"== {s.name}\n{out}")
         if failed:
             raise RuntimeError("nvcc failed\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / lib.name
@@ -101,7 +102,15 @@ def build(verbose: bool = False) -> Path:
         if link.returncode:
             raise RuntimeError(f"nvcc link failed\n{link.stdout}{link.stderr}")
         os.replace(tmp_lib, lib)
+    if verbose:
+        ptxas_log(lib).write_text("".join(reports))
     return lib
+
+
+def ptxas_log(lib: Path) -> Path:
+    """Where ``build(verbose=True)`` leaves ptxas's report for ``lib``:
+    each source's output after a line ``== <source name>``."""
+    return lib.with_suffix(".ptxas.log")
 
 
 @functools.cache

@@ -1,17 +1,138 @@
-"""Launch wrappers of the CUDA index-embed demultiplexers
+"""Launch plans and wrappers of the CUDA index-embed demultiplexers
 (``repro_torch/csrc/index_embed_demux.cu`` and ``decode_demux.cu``).
 
 Both take the 2-layer shared MLP as raw tensors in PyTorch's (out, in)
-layout: w1 (H, 2d), b1 (H), w2 (d, H), b2 (d), all of h's dtype."""
+layout: w1 (H, 2d), b1 (H), w2 (d, H), b2 (d), all of h's dtype.
+
+``plan`` chooses the index-embed demux's body before launch, by dtype and
+shape: bf16 with d and H multiples of 8 (every row stride a multiple of
+16 bytes, as TMA needs) takes the Hopper body -- a TMA + ``wgmma`` GEMM
+for zh = h·W1hᵀ and zp = p·W1pᵀ + b1 into float32 scratch, then the lane
+GEMM with the gelu prologue fused -- and everything else the CUDA-core
+cluster body (``demux_tile.cuh``), as does ``decode_demux``.  A plan the
+body cannot run raises here, before launch; nothing falls back."""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import _build
 
+SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
+MAX_GRID_YZ = 65535
+BODIES = {"cluster": 0, "wgmma": 1}
 
-def _launch(name: str, h, p, w1, b1, w2, b2) -> torch.Tensor:
-    b, rows, d = h.shape
+# The wgmma body: 128 output rows x 256 columns per block, 64 hidden
+# units per ring stage, at most MAX_STAGES stages; the lane GEMM's two
+# consumers also hold two 8 KB activation tiles each.
+ROWS, COLS, MAX_STAGES = 128, 256, 4
+GEMM_STAGE = ROWS * 128 + COLS * 128          # bytes: A and B tiles
+ACT_TILES = 4 * 64 * 128
+
+# The cluster body (demux_tile.cuh): 8-block clusters, 64 register-tile
+# rows, shared-memory tiles in floats.
+CS, KROWS, KT, AS, WS, ZS = 8, 64, 16, 68, 132, 65
+
+
+def _pad1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class DemuxPlan:
+    body: str          # "wgmma" or "cluster"
+    l_rows: int        # rows of L per tile (cluster: rh)
+    lanes: int         # lanes per tile (cluster: rp)
+    stages_a: int      # ring depth of the zh / zp GEMM (wgmma)
+    stages_b: int      # ring depth of the lane GEMM (wgmma)
+    smem_a: int        # shared-memory bytes per block, zh / zp GEMM
+    smem_b: int        # shared-memory bytes per block, lane GEMM / cluster
+    grid_a: tuple      # zh GEMM grid (x, y); the zp GEMM's is grid_p
+    grid_p: tuple
+    grid_b: tuple      # lane GEMM grid / cluster grid (x, y, z)
+
+    def output_rows(self, block: tuple, b: int, n: int, l: int) -> list:
+        """(b, n, l) rows of the output that block (x, y, z) of grid_b
+        writes, for B = b, N = n, L = l -- the kernels' own mapping."""
+        x, y, z = block
+        rows = []
+        if self.body == "wgmma":
+            n_lt = -(-l // self.l_rows)
+            bi, l0 = z // n_lt, (z % n_lt) * self.l_rows
+            for r in range(ROWS):
+                ni, li = r // self.l_rows, r % self.l_rows
+                if ni < self.lanes and y * self.lanes + ni < n \
+                        and l0 + li < l:
+                    rows.append((bi, y * self.lanes + ni, l0 + li))
+        elif x % CS == 0:   # a cluster's rows, counted at its rank 0
+            l0, n0 = (x // CS) * self.l_rows, y * self.lanes
+            for r in range(self.l_rows * self.lanes):
+                ni, li = n0 + r // self.l_rows, l0 + r % self.l_rows
+                if ni < n and li < l:
+                    rows.append((z, ni, li))
+        return rows
+
+
+def _cluster_plan(b, l, n, hidden) -> DemuxPlan:
+    """demux_tile.cuh's tiling: rh rows of L (at most 16), as many lanes as
+    the register tiles and shared memory hold (its pick_tiling)."""
+    rh = min(l, 16)
+    hs = -(-(-(-hidden // CS)) // KT) * KT
+    rhp = -(-rh // 4) * 4
+    rp = min(n, KROWS - rhp, KROWS // rh)
+    while rp >= 1:
+        floats = 3 * KT * AS + KROWS * ZS + rh * rp * hs + KT * AS + KT * WS
+        if floats * 4 <= SMEM_LIMIT:
+            break
+        rp -= 1
+    else:
+        raise ValueError(f"index_embed_demux: H={hidden} does not fit the "
+                         f"cluster body's shared memory")
+    grid = (-(-l // rh) * CS, -(-n // rp), b)
+    return DemuxPlan("cluster", rh, rp, 0, 0, 0, floats * 4, (), (), grid)
+
+
+def plan(b: int, l: int, n: int, d: int, hidden: int,
+         dtype: torch.dtype) -> DemuxPlan:
+    """The index-embed demux's launch for h (B, L, d), p (B, N, d), hidden
+    width H; raises on what no body takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"index_embed_demux: dtype {dtype} not supported; "
+                        f"the kernel takes torch.float32 and torch.bfloat16")
+    if min(b, l, n, d, hidden) < 1:
+        raise ValueError(f"index_embed_demux: empty input B={b} L={l} N={n} "
+                         f"d={d} H={hidden}")
+    # TMA: every row stride (h, p: 2d; w1: 4d; w2: 2H; zh, zp: 4H bytes)
+    # and W1p's start (2d bytes into w1) a multiple of 16.
+    if dtype != torch.bfloat16 or d % 8 or hidden % 8:
+        p = _cluster_plan(b, l, n, hidden)
+    else:
+        rl = min(l, 64)
+        nl = min(n, ROWS // rl)
+        lane_stage = 2 * _pad1024(rl * 128) + 2 * _pad1024(nl * 128) \
+            + COLS * 128
+        stages_b = min(MAX_STAGES,
+                       (SMEM_LIMIT - 1024 - ACT_TILES - 64) // lane_stage)
+        stages_a = MAX_STAGES
+        p = DemuxPlan(
+            "wgmma", rl, nl, stages_a, stages_b,
+            1024 + stages_a * GEMM_STAGE + 16 * stages_a,
+            1024 + stages_b * lane_stage + ACT_TILES + 16 * stages_b,
+            (-(-hidden // COLS), -(-(b * l) // ROWS)),
+            (-(-hidden // COLS), -(-(b * n) // ROWS)),
+            (-(-d // COLS), -(-n // nl), b * -(-l // rl)))
+    grids = [p.grid_a, p.grid_p, p.grid_b]
+    if max(p.smem_a, p.smem_b) > SMEM_LIMIT or \
+            any(max(g[1:], default=0) > MAX_GRID_YZ for g in grids):
+        raise ValueError(f"index_embed_demux: B={b} L={l} N={n} d={d} "
+                         f"H={hidden} exceeds the launch grid or shared "
+                         f"memory")
+    return p
+
+
+def _check(name: str, h, p, w1, b1, w2, b2):
+    b, _, d = h.shape
     n = p.shape[1]
     hidden = w1.shape[0]
     want = {"p": (b, n, d), "w1": (hidden, 2 * d), "b1": (hidden,),
@@ -22,10 +143,47 @@ def _launch(name: str, h, p, w1, b1, w2, b2) -> torch.Tensor:
             raise ValueError(f"{name}: {arg} is {tuple(got[arg].shape)}, "
                              f"expected {shape}")
     _build.check_inputs(name, h.dtype, h=h, **got)
+
+
+def index_embed_demux(h, p, w1, b1, w2, b2) -> torch.Tensor:
+    """h (B, L, d), p (B, N, d) -> (B, N, L, d)."""
+    name = "index_embed_demux"
+    _check(name, h, p, w1, b1, w2, b2)
+    b, rows, d = h.shape
+    n, hidden = p.shape[1], w1.shape[0]
     out = torch.empty((b, n, rows, d), dtype=h.dtype, device=h.device)
     if out.numel() == 0:
         return out
-    err = getattr(_build.library(), name + "_launch")(
+    pl = plan(b, rows, n, d, hidden, h.dtype)
+    zh = zp = None
+    if pl.body == "wgmma":   # float32 scratch of the shared products
+        zh = torch.empty((b * rows, hidden), dtype=torch.float32,
+                         device=h.device)
+        zp = torch.empty((b * n, hidden), dtype=torch.float32,
+                         device=h.device)
+    err = _build.library().index_embed_demux_launch(
+        h.data_ptr(), p.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        zh.data_ptr() if zh is not None else None,
+        zp.data_ptr() if zp is not None else None,
+        _build.DTYPE_CODES[h.dtype], b, rows, n, d, hidden, BODIES[pl.body],
+        pl.l_rows, pl.lanes, pl.stages_a, pl.stages_b, _build.stream_of(h))
+    _build.raise_on_error(name, err)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def decode_demux(h, p, w1, b1, w2, b2) -> torch.Tensor:
+    """h (B, C, d), p (B, N, d) -> (B, N, C, d); all N lanes of a slot in
+    one block, h·W1h computed once per slot."""
+    name = "decode_demux"
+    _check(name, h, p, w1, b1, w2, b2)
+    b, rows, d = h.shape
+    n, hidden = p.shape[1], w1.shape[0]
+    out = torch.empty((b, n, rows, d), dtype=h.dtype, device=h.device)
+    if out.numel() == 0:
+        return out
+    err = _build.library().decode_demux_launch(
         h.data_ptr(), p.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODES[h.dtype], b, rows, n, d, hidden,
@@ -33,14 +191,3 @@ def _launch(name: str, h, p, w1, b1, w2, b2) -> torch.Tensor:
     _build.raise_on_error(name, err)
     _build.LAUNCHES[name] += 1
     return out
-
-
-def index_embed_demux(h, p, w1, b1, w2, b2) -> torch.Tensor:
-    """h (B, L, d), p (B, N, d) -> (B, N, L, d)."""
-    return _launch("index_embed_demux", h, p, w1, b1, w2, b2)
-
-
-def decode_demux(h, p, w1, b1, w2, b2) -> torch.Tensor:
-    """h (B, C, d), p (B, N, d) -> (B, N, C, d); all N lanes of a slot in
-    one block, h·W1h computed once per slot."""
-    return _launch("decode_demux", h, p, w1, b1, w2, b2)

@@ -7,7 +7,11 @@ tests/test_torch_cuda.py``.  Tolerances: 1e-4 (f32) and 1e-2 (bf16) of
 max(1, max|plain|), the plain version run in f32 on the same inputs — the
 kernels accumulate in f32 and round only their output; flash attention in
 bf16 also rounds its probabilities to bf16 for the P·V product on the
-tensor cores (at most 2^-9 relative error per term).  The paged
+tensor cores (at most 2^-9 relative error per term), and the bf16
+index-embed demux's Hopper body rounds its activation gelu(zh + zp) to
+bf16 for the W2 product (the TPU kernel keeps it in f32) with
+tanh.approx.f32.  Each Hopper test asserts which body the launch plan
+chose.  The paged
 attention kernel is compared on query rows with at least one valid key
 (rows with none are garbage in every implementation).
 """
@@ -212,3 +216,99 @@ def test_flash_ops_raises_on_what_the_kernel_does_not_take(cuda):
     q = torch.randn((1, 16, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float16"):
         flash_ops.flash_attention(q, q, q)
+
+
+# (B, N, L, d, H): the evaluation slice's demux (qwen1.5-4b) and a ragged
+# shape (L, N and H not multiples of the tiles; d, H multiples of 8, so
+# still the TMA body), then one whose H breaks TMA's 16-byte strides.
+DEMUX_HOPPER = [((2, 8, 1024, 2560, 5120), "wgmma"),
+                ((3, 3, 17, 96, 160), "wgmma"),
+                ((3, 5, 7, 200, 300), "cluster")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,body", DEMUX_HOPPER)
+def test_demux_body_matches_plain_version_on_card(cuda, shape, body):
+    """The bf16 index-embed demux against its plain version run in f32,
+    asserting the body the plan chose.  The wgmma body rounds the
+    activation gelu(zh + zp) to bf16 before the W2 product (the TPU kernel
+    keeps it in f32) and uses tanh.approx.f32; both stay inside the bf16
+    tolerance of 1e-2 x max(1, max|plain|)."""
+    b, n, l, d, hidden = shape
+    assert demux_kernel.plan(b, l, n, d, hidden, torch.bfloat16).body == body
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*s, scale=1.0):
+        return (scale * torch.randn(s, generator=g, device=cuda)).to(
+            torch.bfloat16)
+
+    h, p = randn(b, l, d), randn(b, n, d)
+    w1, b1 = randn(hidden, 2 * d, scale=(2 * d) ** -0.5), \
+        randn(hidden, scale=0.1)
+    w2, b2 = randn(d, hidden, scale=hidden ** -0.5), randn(d, scale=0.1)
+    mlp = SharedMLPStack([2 * d, hidden, d], device=cuda)
+    with torch.no_grad():
+        for layer, (w, bias) in zip(mlp.layers(), ((w1, b1), (w2, b2))):
+            layer.weight.copy_(w)
+            layer.bias.copy_(bias)
+        want = demux_ref.index_embed_demux(mlp, h.float(), p.float())
+        _build.LAUNCHES.clear()
+        got = demux_kernel.index_embed_demux(h, p, w1, b1, w2, b2).float()
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"index_embed_demux": 1}
+    assert (got - want).abs().max().item() <= 1e-2 * max(
+        1.0, want.abs().max().item())
+
+
+FLASH_HOPPER = [  # (b, lq, lk, h): Lq 1032 is ragged against 128-row tiles
+    (2, 1032, 1032, 4), (1, 37, 45, 2), (2, 45, 37, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", FLASH_HOPPER)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bodies_match_plain_version_on_card(cuda, dtype, tol, case,
+                                                  hd, causal):
+    b, lq, lk, h = case
+    body = flash_kernel.plan(b, lq, lk, h, hd, dtype).body
+    assert body == ("wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((b, lq, h, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((b, lk, h, hd), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
+                                     causal=causal)
+    got = flash_kernel.flash_attention(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= tol * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ignores_keys_past_lk_on_card(cuda, dtype, tol, causal):
+    """Lk = 200 is not a multiple of the key tile (96 keys in bf16, 64 in
+    f32), and the memory just past Lk holds large values: TMA delivers
+    zeros there (which would score 0 and count) and the f32 body stages
+    zeros; both must mask those keys, so the output is that of the 200
+    keys alone."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lk, hd = 200, 128
+    q = torch.randn((1, 150, 2, hd), generator=g, device=cuda).to(dtype)
+    bufs = [torch.full((1, lk + 64, 2, hd), 1e4, device=cuda, dtype=dtype)
+            for _ in range(2)]
+    for buf in bufs:
+        buf[:, :lk] = torch.randn((1, lk, 2, hd), generator=g, device=cuda)
+    k, v = (buf[:, :lk] for buf in bufs)
+    assert k.is_contiguous() and v.is_contiguous()
+    want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
+                                     causal=causal)
+    got = flash_kernel.flash_attention(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= tol * max(
+        1.0, want.abs().max().item())

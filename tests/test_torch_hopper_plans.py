@@ -1,0 +1,177 @@
+"""Launch plans of the port's Hopper kernels, checked on the CPU.
+
+The flash-attention and index-embed demux kernels take their tiling from
+a pure function in Python (``repro_torch.kernels.{attention,demux}.kernel.
+plan``): body, tiles, grid, ring stages and shared memory.  The kernels
+themselves run only on a card (``tests/test_torch_cuda.py``); here the
+coverage, fit, alignment and body-selection logic is held to its rules:
+every output row or query row is written by exactly one block, a block's
+shared memory fits the 232,448 bytes an H100 block may use, the TMA body
+is taken only where every row stride is a multiple of 16 bytes, and the
+wrappers refuse what no body takes."""
+import itertools
+
+import pytest
+import torch
+
+from repro_torch.kernels.attention import kernel as flash_kernel
+from repro_torch.kernels.demux import kernel as demux_kernel
+
+SMEM_LIMIT = 232_448
+BF16, F32 = torch.bfloat16, torch.float32
+
+# (B, L, N, d, H): the evaluation slice (qwen1.5-4b), the lock-step
+# prefill and its L=104 form (tmux-12l-768h), ragged shapes.
+EVAL = (2, 1024, 8, 2560, 5120)
+PREFILL = (8, 1, 40, 768, 1536)
+DEMUX_SHAPES = [EVAL, PREFILL, (8, 104, 40, 768, 1536), (3, 17, 3, 96, 160),
+                (3, 7, 5, 200, 300), (2, 70, 3, 64, 64), (1, 130, 5, 16, 24),
+                (2, 1, 129, 8, 8), (1, 65, 1, 24, 40)]
+
+
+def _demux_rows(plan, b, l, n):
+    gx, gy, gz = plan.grid_b
+    # In the wgmma body x is the column tile, which does not change the
+    # rows; a cluster reports its rows at rank 0 (x % 8 == 0).
+    xs = range(gx) if plan.body == "cluster" else [0]
+    rows = []
+    for x, y, z in itertools.product(xs, range(gy), range(gz)):
+        rows += plan.output_rows((x, y, z), b, n, l)
+    return rows
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("shape", DEMUX_SHAPES)
+def test_demux_plan_writes_every_output_row_once(shape, dtype):
+    b, l, n, d, hidden = shape
+    plan = demux_kernel.plan(b, l, n, d, hidden, dtype)
+    rows = _demux_rows(plan, b, l, n)
+    assert len(rows) == len(set(rows)) == b * n * l
+    assert set(rows) == set(itertools.product(range(b), range(n), range(l)))
+    if plan.body == "wgmma":
+        # columns: 256 per block, the last tile ragged; zh / zp GEMMs
+        # cover B·L and B·N rows and all H hidden units
+        assert (plan.grid_b[0] - 1) * 256 < d <= plan.grid_b[0] * 256
+        assert plan.grid_a[0] * 256 >= hidden and plan.grid_p == (
+            plan.grid_a[0], -(-(b * n) // 128))
+        assert plan.grid_a[1] * 128 >= b * l
+        assert plan.l_rows * plan.lanes <= 128
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("shape", DEMUX_SHAPES)
+def test_demux_plan_fits_shared_memory(shape, dtype):
+    plan = demux_kernel.plan(*shape, dtype)
+    assert 0 < plan.smem_b <= SMEM_LIMIT
+    assert plan.smem_a <= SMEM_LIMIT
+    if plan.body == "wgmma":
+        assert 2 <= plan.stages_b <= 4 and plan.stages_a == 4
+        # the ring's tiles start on the 128-byte swizzle's 1024-byte period;
+        # the two consumers' double-buffered 8 KB activation tiles follow
+        stage = (plan.smem_b - 1024 - 4 * 8192 - 16 * plan.stages_b) \
+            // plan.stages_b
+        assert stage % 1024 == 0 and stage >= 256 * 128
+
+
+@pytest.mark.parametrize("d,hidden,body", [
+    (2560, 5120, "wgmma"), (768, 1536, "wgmma"), (96, 160, "wgmma"),
+    (8, 8, "wgmma"),
+    (200, 300, "cluster"),   # H * 2 = 600 bytes: not a multiple of 16
+    (100, 64, "cluster"),    # d * 2 = 200 bytes
+    (12, 64, "cluster"), (64, 36, "cluster")])
+def test_demux_takes_tma_only_on_16_byte_strides(d, hidden, body):
+    plan = demux_kernel.plan(2, 5, 3, d, hidden, BF16)
+    assert plan.body == body
+    if body == "wgmma":
+        # h, p rows (2d bytes), w1 rows (4d), W1p's start (2d into w1),
+        # w2 rows (2H) and the f32 scratch rows (4H)
+        for nbytes in (2 * d, 4 * d, 2 * hidden, 4 * hidden):
+            assert nbytes % 16 == 0
+
+
+def test_demux_body_selection():
+    assert demux_kernel.plan(*EVAL, BF16).body == "wgmma"
+    assert demux_kernel.plan(*PREFILL, BF16).body == "wgmma"
+    assert demux_kernel.plan(8, 104, 40, 768, 1536, BF16).body == "wgmma"
+    assert demux_kernel.plan(3, 7, 5, 200, 300, BF16).body == "cluster"
+    for shape in (EVAL, PREFILL, (3, 7, 5, 200, 300)):
+        assert demux_kernel.plan(*shape, F32).body == "cluster"
+    # the evaluation shape: one lane per consumer warpgroup, 64 rows of L
+    plan = demux_kernel.plan(*EVAL, BF16)
+    assert (plan.l_rows, plan.lanes) == (64, 2)
+    assert plan.grid_b == (10, 4, 32) and plan.grid_a == (20, 16)
+
+
+def test_demux_plan_matches_the_cluster_bodys_own_tiling():
+    """demux_tile.cuh's pick_tiling narrows the lanes of a cluster until
+    its shared memory fits; the plan computes the same (4 of 8 lanes at
+    the evaluation shape in float32)."""
+    plan = demux_kernel.plan(*EVAL, F32)
+    assert (plan.l_rows, plan.lanes) == (16, 4)
+    assert plan.grid_b == (64 * 8, 2, 2)
+    plan = demux_kernel.plan(8, 1, 40, 768, 1536, F32)
+    assert (plan.l_rows, plan.lanes) == (1, 40)
+
+
+@pytest.mark.parametrize("bad", [dict(dtype=torch.float16),
+                                 dict(l=0), dict(d=0)])
+def test_demux_plan_raises_on_what_it_does_not_take(bad):
+    args = dict(b=2, l=4, n=3, d=64, hidden=128, dtype=BF16) | bad
+    with pytest.raises((TypeError, ValueError)):
+        demux_kernel.plan(**args)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("lq", [1, 37, 64, 127, 128, 129, 1032, 8192])
+def test_flash_plan_covers_every_query_row_once(lq, dtype):
+    plan = flash_kernel.plan(2, lq, lq, 4, 128, dtype)
+    rows = [r for z in range(plan.grid[2]) for r in plan.query_rows(z, lq)]
+    assert sorted(rows) == list(range(lq))
+    # heaviest tile first: blockIdx.z == 0 holds the last query rows
+    assert plan.query_rows(0, lq)[-1] == lq - 1
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_plan_fits_shared_memory(hd, dtype):
+    plan = flash_kernel.plan(2, 1032, 1032, 20, hd, dtype)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    if dtype == BF16:
+        # Q (128 rows) and a 3-stage ring of 96-key K and V tiles, in
+        # 128-byte rows of 64 columns, plus 1024 bytes of alignment slack
+        # and 13 mbarriers
+        assert plan.smem_bytes == 1024 + 128 * hd * 2 + 6 * 96 * hd * 2 \
+            + 13 * 8
+        assert (hd * 2) % 128 == 0      # whole 64-column TMA boxes
+
+
+def test_flash_body_selection():
+    plan = flash_kernel.plan(2, 1032, 1032, 20, 128, BF16)
+    assert plan.body == "wgmma" and plan.threads == 384
+    assert plan.grid == (20, 2, 9) and (plan.k_tile, plan.stages) == (96, 3)
+    # the ragged tile (8 rows) is the first rows, launched last
+    assert plan.query_rows(8, 1032) == range(0, 8)
+    plan = flash_kernel.plan(2, 1032, 1032, 20, 128, F32)
+    assert plan.body == "cuda_cores" and plan.threads == 256
+    assert plan.grid == (20, 2, 17)
+
+
+@pytest.mark.parametrize("hd,dtype,exc,match", [
+    (32, BF16, ValueError, "head_dim 32"),
+    (96, F32, ValueError, "head_dim 96"),
+    (64, torch.float16, TypeError, "float16")])
+def test_flash_wrapper_raises_on_what_no_body_takes(hd, dtype, exc, match):
+    q = torch.zeros((1, 16, 2, hd), dtype=dtype)
+    with pytest.raises(exc, match=match):
+        flash_kernel.flash_attention(q, q, q)
+    with pytest.raises(exc, match=match):
+        flash_kernel.plan(1, 16, 16, 2, hd, dtype)
+
+
+def test_demux_wrapper_raises_on_what_no_body_takes():
+    h, p = torch.zeros((2, 4, 8), dtype=torch.float16), \
+        torch.zeros((2, 3, 8), dtype=torch.float16)
+    w1, b1, w2, b2 = (torch.zeros(s, dtype=torch.float16)
+                      for s in ((16, 16), (16,), (8, 16), (8,)))
+    with pytest.raises(TypeError, match="float16"):
+        demux_kernel.index_embed_demux(h, p, w1, b1, w2, b2)
