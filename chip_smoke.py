@@ -9,11 +9,14 @@ Phases, any failure of which ends the run with a non-zero exit:
   2. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc
      (sm_90a) and print each one's registers and spills (ptxas -v) and
      its HGMMA / UTMALDG count (cuobjdump -sass), failing if a Hopper
-     bf16 body (TMA + wgmma) has none; then hold each kernel against its
-     plain PyTorch version on the card (run in float32 on the same
-     inputs), in bf16 and f32, at the slices' shapes and at ragged ones
-     (flash attention also with keys past Lk planted in memory), naming
-     the body the launch plan chose, and time both with CUDA events (the
+     bf16 body (TMA + wgmma) has none of either or the paged kernel no
+     UTMALDG; then hold each kernel against its plain PyTorch version on
+     the card (run in float32 on the same inputs), in bf16 and f32, at the
+     slices' shapes (the decode demux at C = 1 and C = 4) and at ragged
+     ones (flash attention also with keys past Lk planted in memory; the
+     paged attention also at 64 pages per slot and with a split of the
+     block table all unmapped next to planted pages), naming the body or
+     split the launch plan chose, and time both with CUDA events (the
      attention kernels also beside ``scaled_dot_product_attention``, a
      yardstick the port never calls);
   3. the lock-step slice: serve ``tmux-12l-768h`` at full width and N=40 in
@@ -84,10 +87,14 @@ SOURCES = {
 
 
 # The bf16 bodies redesigned for Hopper (TMA + wgmma): their SASS must
-# hold HGMMA and UTMALDG instructions.
+# hold HGMMA and UTMALDG instructions; the paged kernel's (TMA, CUDA-core
+# math) UTMALDG instructions.
 REDESIGNED_BODIES = ("flash_attention_wgmma_kernel<64>",
                      "flash_attention_wgmma_kernel<128>",
-                     "demux_gemm_kernel", "demux_lane_kernel")
+                     "demux_gemm_kernel", "demux_lane_kernel",
+                     "decode_gemm_kernel", "decode_lane_kernel")
+TMA_BODIES = tuple(f"paged_split_kernel<{t}, {r}>"
+                   for t in ("bf16", "float") for r in (1, 4, 16))
 
 
 def time_ms(fn, runs: int = 21, calls: int = 5, warmup: int = 3) -> float:
@@ -122,18 +129,22 @@ def time_ms(fn, runs: int = 21, calls: int = 5, warmup: int = 3) -> float:
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_attention_wgmma_kernel<128>`` from its mangled name: the
-    last of the length-prefixed names, then a template argument."""
+    """``paged_split_kernel<bf16, 16>`` from its mangled name: the last of
+    the length-prefixed names, then its template arguments (types bf16 and
+    float, integer literals)."""
     i = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while (m := re.match(r"\d+", mangled[i:])):
         n = int(m.group())
         name = mangled[i + m.end():i + m.end() + n]
         i += m.end() + n
-    args = {"ILi64E": "<64>", "ILi128E": "<128>", "I13__nv_bfloat16E":
-            "<bf16>", "IfE": "<float>"}
-    return name + next((v for k, v in args.items()
-                        if mangled.startswith(k, i)), "")
+    if not mangled.startswith("I", i):
+        return name
+    args, i = [], i + 1
+    while (m := re.match(r"13__nv_bfloat16|f|Li(\d+)E", mangled[i:])):
+        args.append(m.group(1) or {"f": "float"}.get(m.group(), "bf16"))
+        i += m.end()
+    return f"{name}<{', '.join(args)}>" if args else name
 
 
 def report_build(lib, build) -> None:
@@ -168,6 +179,10 @@ def report_build(lib, build) -> None:
         if not all(counts.get(name, (0, 0))):
             raise SystemExit(f"[build] FAIL: {name} has no HGMMA or no "
                              f"UTMALDG in its SASS")
+    for name in TMA_BODIES:
+        if not counts.get(name, (0, 0))[1]:
+            raise SystemExit(f"[build] FAIL: {name} has no UTMALDG in its "
+                             f"SASS")
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -219,6 +234,8 @@ def check_kernels(torch, gen):
                     ("index_embed_demux", 2, 8, 1024, 2560, 5120),
                     ("index_embed_demux", 3, 3, 17, 96, 160),
                     ("decode_demux", 8, 40, 1, 768, 1536),
+                    ("decode_demux", 8, 40, 4, 768, 1536),
+                    ("decode_demux", 3, 3, 3, 96, 160),
                     ("decode_demux", 3, 5, 7, 200, 300))
     for name, b, n, l, d, hid in demux_shapes:
         h32, p32 = randn(b, l, d), randn(b, n, d)
@@ -240,7 +257,8 @@ def check_kernels(torch, gen):
             flops = b * (2 * l * d * hid + 2 * n * d * hid
                          + 2 * n * l * hid * d)
             body = (demux_kernel.plan(b, l, n, d, hid, dtype).body
-                    if name == "index_embed_demux" else "cluster")
+                    if name == "index_embed_demux" else
+                    demux_kernel.decode_plan(b, l, n, d, hid, dtype).body)
             cases.append((name, dict(B=b, N=n, L=l, d=d, H=hid, body=body),
                           dtype,
                           lambda a=(h, p, w1, b1, w2, b2), fn=fn: fn(*a),
@@ -273,12 +291,16 @@ def check_kernels(torch, gen):
 
 
 def paged_inputs(torch, gen, dtype, *, b, h, kvh, hd, ps, mp, c,
-                 lengths=None, pool=None, seed=0):
+                 lengths=None, hole=0, pool=None, seed=0):
     """Pool, block table and query block on the card.  With ``lengths``
     each slot holds that many positions in its first pages (the serving
     layout: full pages, the last one partial, q at the last C positions);
-    without, each slot maps a random number of distinct pages, each
-    written up to a random length, q at random consecutive positions."""
+    with ``hole``, every slot's table is full but for ``hole`` unmapped
+    entries in its middle, q at the last C positions, and every page no
+    table maps holds keys and values of 1e4 at positions that would pass
+    every mask; otherwise each slot maps a random number of distinct pages,
+    each written up to a random length, q at random consecutive
+    positions."""
     pool = pool or b * mp + 1
     q = torch.randn((b, c, h, hd), generator=gen, device="cuda")
     k = torch.randn((pool, ps, kvh, hd), generator=gen, device="cuda")
@@ -288,6 +310,21 @@ def paged_inputs(torch, gen, dtype, *, b, h, kvh, hd, ps, mp, c,
     cg = torch.Generator().manual_seed(seed)   # host-side layout choices
     pages = (1 + torch.randperm(pool - 1, generator=cg)).tolist()
     q_pos = torch.zeros((b, c), dtype=torch.int32)
+    if hole:
+        mid = (mp - hole) // 2
+        pos[:] = torch.arange(ps, dtype=torch.int32)
+        for i in range(b):
+            q_pos[i] = mp * ps - c + torch.arange(c)
+            for j in list(range(mid)) + list(range(mid + hole, mp)):
+                p = pages.pop()
+                bt[i, j] = p
+                pos[p] = j * ps + torch.arange(ps)
+        unused = torch.ones(pool, dtype=torch.bool)
+        unused[bt[bt >= 0].long()] = False
+        k[unused.cuda()] = 1e4
+        v[unused.cuda()] = 1e4
+        return ([t.to(dtype) for t in (q, k, v)] +
+                [t.cuda() for t in (pos, bt, q_pos)])
     for i in range(b):
         if lengths is not None:
             n = -(-lengths[i] // ps)
@@ -308,12 +345,30 @@ def paged_inputs(torch, gen, dtype, *, b, h, kvh, hd, ps, mp, c,
             [t.cuda() for t in (pos, bt, q_pos)])
 
 
+def paged_mask(pos, bt, q_pos, causal, window):
+    """(B, C, max_pages * ps) bool: the keys each query row may attend to,
+    in position order (the plain version's mask)."""
+    from repro_torch.kernels.paged_attention import ref as paged_ref
+
+    k_pos = paged_ref.gather_positions(pos, bt)
+    diff = q_pos[:, :, None] - k_pos[:, None, :]
+    mask = (k_pos >= 0)[:, None, :].expand_as(diff)
+    if causal:
+        mask = mask & (diff >= 0)
+    if window is not None:
+        mask = mask & (diff < window)
+    return mask
+
+
 def check_paged_kernel(torch, gen):
     """The paged decode-attention kernel against its plain version at the
-    paged slice's shapes (C = 1 and C = 4) and at a ragged one, for
-    kblock_pages 1, 2 and 4; ``library_ms`` is
-    ``scaled_dot_product_attention`` on K/V already gathered into position
-    order with the boolean mask (the gather is not timed)."""
+    paged slice's shapes (C = 1 and C = 4), at a ragged one, at a long
+    context (64 mapped pages per slot) and with an all-unmapped split next
+    to pages planted with 1e4, for kblock_pages 1, 2 and 4; each line
+    names the plan's split (blocks per slot and KV head).
+    ``library_ms`` is ``scaled_dot_product_attention`` on K/V already
+    gathered into position order with the boolean mask (the gather is not
+    timed)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
@@ -322,19 +377,24 @@ def check_paged_kernel(torch, gen):
 
     g = torch.Generator().manual_seed(0)
     tmux_lengths = torch.randint(120, 138, (8,), generator=g).tolist()
-    shapes = [  # (label, shape kwargs, lengths, causal, window, kblocks)
-        ("slice C1", dict(b=8, h=12, kvh=12, hd=64, ps=16, mp=9, c=1),
-         tmux_lengths, False, None, (1, 2, 4)),
-        ("slice C4", dict(b=8, h=12, kvh=12, hd=64, ps=16, mp=9, c=4),
-         tmux_lengths, False, None, (1,)),
+    slice_kw = dict(b=8, h=12, kvh=12, hd=64, ps=16)
+    shapes = [  # (label, shape and layout kwargs, causal, window, kblocks)
+        ("slice C1", dict(slice_kw, mp=9, c=1, lengths=tmux_lengths),
+         False, None, (1, 2, 4)),
+        ("slice C4", dict(slice_kw, mp=9, c=4, lengths=tmux_lengths),
+         False, None, (1,)),
         ("ragged", dict(b=3, h=8, kvh=2, hd=128, ps=8, mp=7, c=3, pool=37),
-         None, True, 8, (1, 2, 4)),
+         True, 8, (1, 2, 4)),
+        ("long context",
+         dict(slice_kw, mp=64, c=1, lengths=[64 * 16 - 3] * 8),
+         False, None, (1, 2)),
+        (UNMAPPED, dict(slice_kw, mp=16, c=1, hole=8), True, None, (1, 2)),
     ]
     results = []
     with torch.no_grad():
-        for label, kw, lengths, causal, window, kblocks in shapes:
+        for label, kw, causal, window, kblocks in shapes:
             for dtype in (torch.bfloat16, torch.float32):
-                args = paged_inputs(torch, gen, dtype, lengths=lengths, **kw)
+                args = paged_inputs(torch, gen, dtype, **kw)
                 q, k_pages, v_pages, pos, bt, q_pos = args
                 b, c, h, hd = q.shape
                 scale = hd ** -0.5
@@ -342,13 +402,7 @@ def check_paged_kernel(torch, gen):
                        for t in args]
                 want = paged_ref.paged_attention(*f32, scale=scale,
                                                  causal=causal, window=window)
-                k_pos = paged_ref.gather_positions(pos, bt)
-                diff = q_pos[:, :, None] - k_pos[:, None, :]
-                mask = (k_pos >= 0)[:, None, :].expand_as(diff)
-                if causal:
-                    mask = mask & (diff >= 0)
-                if window is not None:
-                    mask = mask & (diff < window)
+                mask = paged_mask(pos, bt, q_pos, causal, window)
                 live = mask.any(-1)[:, :, None, None]
                 n_rep = h // k_pages.shape[2]
                 kg = _repeat_kv(paged_ref.gather_pages(k_pages, bt), n_rep)
@@ -371,6 +425,15 @@ def check_paged_kernel(torch, gen):
                 dname = str(dtype).removeprefix("torch.")
                 bound_ms, bound_by = bound(nbytes, flops, dname)
                 for kb in kblocks:
+                    pl = paged_kernel.plan(b, c, h, kvh, hd, ps,
+                                           bt.shape[1], kb, dtype)
+                    if label == UNMAPPED and not (pl.splits > 1 and any(
+                            bool((bt[:, list(pl.split_entries(
+                                x, bt.shape[1]))] < 0).all())
+                            for x in range(pl.splits))):
+                        raise SystemExit(f"[kernel] FAIL: {label} kblock "
+                                         f"{kb}: no split is all unmapped")
+
                     def kern(kb=kb):
                         return paged_kernel.paged_decode_attention(
                             *args, scale=scale, causal=causal, window=window,
@@ -383,13 +446,14 @@ def check_paged_kernel(torch, gen):
                     ms = time_ms(kern)
                     shape = dict(B=b, C=c, H=h, KVH=kvh, hd=hd, ps=ps,
                                  max_pages=bt.shape[1], mapped=mapped,
-                                 kblock=kb, causal=causal, window=window)
+                                 kblock=kb, causal=causal, window=window,
+                                 splits=pl.splits)
                     print(f"[kernel] paged_decode_attention {label} {shape} "
                           f"{dname}: max_abs_err {err:.3g} (tol {tol:.3g}), "
                           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
                           f"sdpa on gathered K/V {library_ms:.4f} ms, "
                           f"bound {bound_ms:.3g} ms ({bound_by})")
-                    if not err <= tol:
+                    if not (err <= tol and bool(torch.isfinite(got).all())):
                         raise SystemExit(
                             f"[kernel] FAIL: paged_decode_attention {label} "
                             f"kblock {kb} {dname} disagrees with its plain "
@@ -403,6 +467,9 @@ def check_paged_kernel(torch, gen):
           "scaled_dot_product_attention on K/V already gathered into "
           "position order; it excludes the gather")
     return results
+
+
+UNMAPPED = "all-unmapped split, 1e4 planted"
 
 
 def flash_cases(torch, gen):

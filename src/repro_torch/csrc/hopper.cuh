@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the redesigned kernels
-// (flash_attention.cu, index_embed_demux.cu): mbarriers, TMA tensor-map
+// (flash_attention.cu, index_embed_demux.cu, decode_demux.cu,
+// paged_decode_attention.cu): mbarriers, TMA tensor-map
 // loads, warpgroup MMA (`wgmma`) with its shared-memory descriptors, and
 // register reallocation between warpgroups (`setmaxnreg`).  Plain inline
 // PTX for sm_90a; no CuTe, no CUTLASS.
@@ -87,6 +88,18 @@ __device__ __forceinline__ void named_bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Programmatic dependent launch: a grid launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// grid before it in the stream runs; grid_dependency_wait() blocks the
+// calling thread until that grid has completed and its writes are
+// visible, and launch_dependents() lets the next such grid start early.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA: tiles global -> shared, completion counted on an mbarrier
 // ---------------------------------------------------------------------------
@@ -112,14 +125,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Encodes a tiled tensor map with the 128-byte swizzle.  dims: extents,
-// innermost first; strides: bytes from one index to the next of dims 1..;
-// box: the tile's extent in each dim (box[0] * element size <= 128).
-// Elements outside dims are delivered as zeros.  Returns a cudaError_t.
-inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
-                           int rank, const void* base,
-                           const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box) {
+// Encodes a tiled tensor map, by default with the 128-byte swizzle.  dims:
+// extents, innermost first; strides: bytes from one index to the next of
+// dims 1..; box: the tile's extent in each dim (with the 128-byte swizzle
+// box[0] * element size <= 128; without a swizzle a multiple of 16 bytes,
+// and the tile lands densely, innermost dim first).  Elements outside dims
+// are delivered as zeros.  Returns a cudaError_t.
+inline int make_tensor_map(
+    CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -140,10 +155,29 @@ inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
       map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides,
-      box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// 2-D tensor map, 128-byte swizzle: rows x cols (cols innermost) with
+// `ld` elements from one row to the next, boxes of box_rows x box_cols.
+inline int map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                  const void* base, long long rows, long long cols,
+                  long long ld, int box_rows, int box_cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return make_tensor_map(map, type, 2, base, dims, strides, box);
+}
+
+// Two f32 at (row, col), col even and < 32, of a 128-byte-row box loaded
+// with the 128-byte swizzle.
+__device__ __forceinline__ float2 ld_swizzled(const uint8_t* box, int row,
+                                              int col) {
+  return *reinterpret_cast<const float2*>(
+      box + row * 128 + (((col >> 2) ^ (row & 7)) << 4) + (col & 3) * 4);
 }
 
 // ---------------------------------------------------------------------------
@@ -233,6 +267,37 @@ __device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t a,
         "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16) * B (128 x 16), both K-major in
+// shared memory (128-byte swizzle); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -373,6 +438,16 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// gelu with the tanh approximation, tanh on the special-function unit.
+__device__ __forceinline__ float gelu_tanh_approx(float z) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  float th;
+  asm("tanh.approx.f32 %0, %1;"
+      : "=f"(th)
+      : "f"(k * fmaf(0.044715f * z, z * z, z)));
+  return 0.5f * z * (1.f + th);
 }
 
 // Two floats as a bf16 pair, `lo` in the low half (the lower index).

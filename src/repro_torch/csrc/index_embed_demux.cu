@@ -173,23 +173,6 @@ __global__ void __launch_bounds__(kWgThreads, 1) demux_gemm_kernel(
 // Stage B: out = gelu_tanh(zh + zp) · W2ᵀ + b2, the activation in registers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float gelu_tanh_approx(float z) {
-  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  float th;
-  asm("tanh.approx.f32 %0, %1;"
-      : "=f"(th)
-      : "f"(k * fmaf(0.044715f * z, z * z, z)));
-  return 0.5f * z * (1.f + th);
-}
-
-// Two f32 at (row, col), col even and < 32, of a 128-byte-row box loaded
-// with the 128-byte swizzle.
-__device__ __forceinline__ float2 ld_swizzled(const uint8_t* box, int row,
-                                              int col) {
-  return *reinterpret_cast<const float2*>(
-      box + row * 128 + (((col >> 2) ^ (row & 7)) << 4) + (col & 3) * 4);
-}
-
 // grid: x = 256-column tile, y = group of nl lanes, z = b * n_lt + L-tile.
 __global__ void __launch_bounds__(kWgThreads, 1) demux_lane_kernel(
     const __grid_constant__ CUtensorMap mzh,
@@ -306,24 +289,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) demux_lane_kernel(
   }
 }
 
-// 2-D tensor map, 128-byte swizzle: rows x cols (cols innermost) with
-// `ld` elements from one row to the next, boxes of box_rows x box_cols.
-int map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem,
-           const void* base, long long rows, long long cols, long long ld,
-           int box_rows, int box_cols) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  return hopper::make_tensor_map(map, type, 2, base, dims, strides, box);
-}
-
 int launch_gemm(const void* a, const void* b, const void* bias, float* c,
                 int M, int Nc, int K, int ldb, int stages,
                 cudaStream_t stream) {
   constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap ma, mb;
-  int err = map_2d(&ma, kBf16, 2, a, M, K, K, kBM, kDepth);
-  if (!err) err = map_2d(&mb, kBf16, 2, b, Nc, K, ldb, kBN, kDepth);
+  int err = hopper::map_2d(&ma, kBf16, 2, a, M, K, K, kBM, kDepth);
+  if (!err)
+    err = hopper::map_2d(&mb, kBf16, 2, b, Nc, K, ldb, kBN, kDepth);
   if (err) return err;
   const size_t smem = gemm_smem(stages);
   cudaError_t e = cudaFuncSetAttribute(
@@ -358,11 +331,12 @@ int launch_wgmma(const void* h, const void* p, const void* w1, const void* b1,
 
   constexpr auto kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap mzh, mzp, mw2;
-  err = map_2d(&mzh, kF32, 4, zh, (long long)B * L, H, H, rl, 32);
-  if (!err) err = map_2d(&mzp, kF32, 4, zp, (long long)B * N, H, H, nl, 32);
+  err = hopper::map_2d(&mzh, kF32, 4, zh, (long long)B * L, H, H, rl, 32);
   if (!err)
-    err = map_2d(&mw2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w2, d, H, H, kBN,
-                 kDepth);
+    err = hopper::map_2d(&mzp, kF32, 4, zp, (long long)B * N, H, H, nl, 32);
+  if (!err)
+    err = hopper::map_2d(&mw2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w2, d,
+                         H, H, kBN, kDepth);
   if (err) return err;
   const size_t smem = lane_smem(rl, nl, stages_b);
   cudaError_t e = cudaFuncSetAttribute(

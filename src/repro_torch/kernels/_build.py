@@ -40,9 +40,9 @@ _SIGNATURES = {
     "hadamard_mux_launch": [_P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I,
                             _P],
     "index_embed_demux_launch": [_P] * 9 + [_I] * 11 + [_P],
-    "decode_demux_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "decode_demux_launch": [_P] * 9 + [_I] * 12 + [_P],
     "paged_decode_attention_launch": [_P] * 7 + [_I] * 9
-    + [ctypes.c_float, _I, _I, _P],
+    + [ctypes.c_float, _I, _I, _I, _I, _I, ctypes.c_longlong, _P],
     "flash_attention_launch": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I]
     + [_I] * 5 + [ctypes.c_longlong, _P],
 }
@@ -144,6 +144,16 @@ def check_inputs(name: str, dtype: torch.dtype, **tensors) -> None:
                                f"has no backward; run under torch.no_grad()")
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {devices}")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (a launch plan's input)."""
+    return _sm_count(device.index)
 
 
 def stream_of(t: torch.Tensor) -> int:

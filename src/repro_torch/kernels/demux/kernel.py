@@ -9,8 +9,10 @@ shape: bf16 with d and H multiples of 8 (every row stride a multiple of
 16 bytes, as TMA needs) takes the Hopper body -- a TMA + ``wgmma`` GEMM
 for zh = h·W1hᵀ and zp = p·W1pᵀ + b1 into float32 scratch, then the lane
 GEMM with the gelu prologue fused -- and everything else the CUDA-core
-cluster body (``demux_tile.cuh``), as does ``decode_demux``.  A plan the
-body cannot run raises here, before launch; nothing falls back."""
+cluster body (``demux_tile.cuh``).  ``decode_plan`` does the same for the
+decode demux, whose Hopper body tiles the B·N·C output rows flat, 64 at a
+time across slot boundaries, in 64-column tiles.  A plan the body cannot
+run raises here, before launch; nothing falls back."""
 from __future__ import annotations
 
 import dataclasses
@@ -74,7 +76,7 @@ class DemuxPlan:
         return rows
 
 
-def _cluster_plan(b, l, n, hidden) -> DemuxPlan:
+def _cluster_plan(b, l, n, hidden, name="index_embed_demux") -> DemuxPlan:
     """demux_tile.cuh's tiling: rh rows of L (at most 16), as many lanes as
     the register tiles and shared memory hold (its pick_tiling)."""
     rh = min(l, 16)
@@ -87,22 +89,26 @@ def _cluster_plan(b, l, n, hidden) -> DemuxPlan:
             break
         rp -= 1
     else:
-        raise ValueError(f"index_embed_demux: H={hidden} does not fit the "
-                         f"cluster body's shared memory")
+        raise ValueError(f"{name}: H={hidden} does not fit the cluster "
+                         f"body's shared memory")
     grid = (-(-l // rh) * CS, -(-n // rp), b)
     return DemuxPlan("cluster", rh, rp, 0, 0, 0, floats * 4, (), (), grid)
+
+
+def _check_shape(name, dtype, b, l, n, d, hidden) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {dtype} not supported; the kernel "
+                        f"takes torch.float32 and torch.bfloat16")
+    if min(b, l, n, d, hidden) < 1:
+        raise ValueError(f"{name}: empty input B={b} L={l} N={n} d={d} "
+                         f"H={hidden}")
 
 
 def plan(b: int, l: int, n: int, d: int, hidden: int,
          dtype: torch.dtype) -> DemuxPlan:
     """The index-embed demux's launch for h (B, L, d), p (B, N, d), hidden
     width H; raises on what no body takes."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"index_embed_demux: dtype {dtype} not supported; "
-                        f"the kernel takes torch.float32 and torch.bfloat16")
-    if min(b, l, n, d, hidden) < 1:
-        raise ValueError(f"index_embed_demux: empty input B={b} L={l} N={n} "
-                         f"d={d} H={hidden}")
+    _check_shape("index_embed_demux", dtype, b, l, n, d, hidden)
     # TMA: every row stride (h, p: 2d; w1: 4d; w2: 2H; zh, zp: 4H bytes)
     # and W1p's start (2d bytes into w1) a multiple of 16.
     if dtype != torch.bfloat16 or d % 8 or hidden % 8:
@@ -128,6 +134,127 @@ def plan(b: int, l: int, n: int, d: int, hidden: int,
         raise ValueError(f"index_embed_demux: B={b} L={l} N={n} d={d} "
                          f"H={hidden} exceeds the launch grid or shared "
                          f"memory")
+    return p
+
+
+# The decode demux's flat-row body (decode_demux.cu): zh / zp GEMM tiles
+# of 64 rows x 96 hidden units; lane tiles of 64 flat rows x 256 columns,
+# the hidden axis (64 units per ring stage) split over a cluster of at most
+# 8 blocks; three 8 KB activation tiles; the f32 partial (64 rows of 256 + 4
+# floats) reuses the drained ring.
+FLAT, LANE_COLS, STAGES_A, MAX_STAGES_B, MIN_STAGES_B = 64, 256, 4, 4, 2
+GEMM_ROWS, GEMM_COLS = 64, 96
+FLAT_GEMM_STAGE = (GEMM_ROWS + GEMM_COLS) * 128  # bytes: A and W1 tiles
+FLAT_ACT_TILES = 3 * FLAT * 128
+FLAT_PARTIAL = FLAT * (LANE_COLS + 4) * 4
+LANE_THREADS, MAX_CLUSTER, H100_SMS = 288, 8, 132
+MAX_BOX_ROWS = 256                              # a TMA box's rows
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The decode demux's flat-row launch: output row r = (b·N + n)·C + c of
+    the B·N·C rows (out's own row order).  The cluster of blocks (x, y, z),
+    x < splits, owns rows [64 z, 64 z + 64) at columns [256 y, 256 y +
+    256); block x sums hidden steps [x k_per, x k_per + k_per) and stages
+    zh rows from ``zh_start(z)`` (``zh_rows`` of them) and zp rows from
+    ``zp_start(z)`` (``zp_rows``); the cluster's blocks then share the
+    tile's 64 x 64 groups of 4 columns (``reduce_groups``)."""
+    body: str          # "wgmma"
+    b: int
+    c: int
+    n: int
+    zh_rows: int
+    zp_rows: int
+    splits: int        # blocks per cluster along the hidden axis
+    k_per: int         # hidden steps of 64 units per block
+    stages_a: int      # ring depth of the zh / zp GEMM
+    stages_b: int      # ring depth of the lane GEMM
+    smem_a: int
+    smem_b: int
+    grid_a: tuple      # (H tiles of 96, zh + zp row tiles of 64)
+    grid_b: tuple      # (splits, d tiles, flat row tiles)
+
+    def zh_start(self, z: int) -> int:
+        return (z * FLAT // (self.n * self.c)) * self.c
+
+    def zp_start(self, z: int) -> int:
+        return z * FLAT // self.c
+
+    def output_rows(self, block: tuple, b: int, n: int, c: int) -> list:
+        """(b, n, c) rows of the output that the cluster of block (x, y, z)
+        writes, counted at its rank 0."""
+        x, _, z = block
+        if x:
+            return []
+        return [(r // (n * c), r // c % n, r % c)
+                for r in range(z * FLAT, min((z + 1) * FLAT, b * n * c))]
+
+    def reduce_groups(self, rank: int) -> list:
+        """The tile's groups of 4 columns (row * 64 + column / 4) that rank
+        ``rank`` of a cluster sums and writes: thread t takes rank * 288 + t
+        and every splits * 288 after it."""
+        start = rank * LANE_THREADS
+        return [q for t in range(start, start + LANE_THREADS)
+                for q in range(t, FLAT * LANE_COLS // 4,
+                               self.splits * LANE_THREADS)]
+
+
+def _flat_stage(zh_rows: int, zp_rows: int) -> int:
+    return 2 * _pad1024(zh_rows * 128) + 2 * _pad1024(zp_rows * 128) \
+        + LANE_COLS * 128
+
+
+def decode_plan(b: int, c: int, n: int, d: int, hidden: int,
+                dtype: torch.dtype, aligned: bool = True,
+                sms: int = H100_SMS):
+    """The decode demux's launch for h (B, C, d), p (B, N, d), hidden width
+    H on a card of ``sms`` SMs: a ``DecodePlan`` (bf16, d and H multiples
+    of 8, ``aligned`` operand addresses) or the cluster body's
+    ``DemuxPlan`` (everything else); raises on what no body takes."""
+    name = "decode_demux"
+    _check_shape(name, dtype, b, c, n, d, hidden)
+    if dtype != torch.bfloat16 or d % 8 or hidden % 8 or not aligned:
+        p = _cluster_plan(b, c, n, hidden, name)
+        smem, grids = p.smem_b, [p.grid_b]
+    else:
+        # A 64-row tile spans at most (63 // (N·C)) + 2 slots and
+        # 63 // C + 2 rows of zp.
+        zh_rows = min(b, (FLAT - 1) // (n * c) + 2) * c
+        zp_rows = min(b * n, (FLAT - 1) // c + 2)
+        if max(zh_rows, zp_rows) > MAX_BOX_ROWS:
+            raise ValueError(f"{name}: C={c} needs {zh_rows} rows of zh per "
+                             f"64-row tile; a TMA box takes "
+                             f"{MAX_BOX_ROWS}")
+        # Split the hidden axis into the largest power of two of blocks
+        # that keeps the grid within one wave, none of them empty.
+        tiles = -(-d // LANE_COLS) * -(-(b * n * c) // FLAT)
+        n_k = -(-hidden // FLAT)
+        splits = 1
+        while splits * 2 <= min(MAX_CLUSTER, n_k) and \
+                tiles * splits * 2 <= sms:
+            splits *= 2
+        k_per = -(-n_k // splits)
+        splits = -(-n_k // k_per)
+        stage = _flat_stage(zh_rows, zp_rows)
+        fixed = 1024 + FLAT_ACT_TILES
+        stages_b = min(MAX_STAGES_B, (SMEM_LIMIT - fixed) // (stage + 16))
+        smem_a = 1024 + STAGES_A * (FLAT_GEMM_STAGE + 16)
+        p = DecodePlan(
+            "wgmma", b, c, n, zh_rows, zp_rows, splits, k_per, STAGES_A,
+            stages_b, smem_a,
+            fixed + max(stages_b * stage, FLAT_PARTIAL) + 16 * stages_b,
+            (-(-hidden // GEMM_COLS),
+             -(-(b * c) // GEMM_ROWS) + -(-(b * n) // GEMM_ROWS)),
+            (splits, -(-d // LANE_COLS), -(-(b * n * c) // FLAT)))
+        if stages_b < MIN_STAGES_B:
+            raise ValueError(f"{name}: B={b} C={c} N={n} needs {stage} bytes "
+                             f"per ring stage; {MIN_STAGES_B} stages do not "
+                             f"fit {SMEM_LIMIT} bytes of shared memory")
+        smem, grids = max(p.smem_a, p.smem_b), [p.grid_a, p.grid_b]
+    if smem > SMEM_LIMIT or any(max(g[1:]) > MAX_GRID_YZ for g in grids):
+        raise ValueError(f"{name}: B={b} C={c} N={n} d={d} H={hidden} "
+                         f"exceeds the launch grid or shared memory")
     return p
 
 
@@ -174,8 +301,8 @@ def index_embed_demux(h, p, w1, b1, w2, b2) -> torch.Tensor:
 
 
 def decode_demux(h, p, w1, b1, w2, b2) -> torch.Tensor:
-    """h (B, C, d), p (B, N, d) -> (B, N, C, d); all N lanes of a slot in
-    one block, h·W1h computed once per slot."""
+    """h (B, C, d), p (B, N, d) -> (B, N, C, d); h·W1h computed once per
+    (slot, row) and p·W1p once per (slot, lane)."""
     name = "decode_demux"
     _check(name, h, p, w1, b1, w2, b2)
     b, rows, d = h.shape
@@ -183,11 +310,27 @@ def decode_demux(h, p, w1, b1, w2, b2) -> torch.Tensor:
     out = torch.empty((b, n, rows, d), dtype=h.dtype, device=h.device)
     if out.numel() == 0:
         return out
+    # TMA reads each operand from a 16-byte-aligned address.
+    aligned = all(t.data_ptr() % 16 == 0 for t in (h, p, w1, w2))
+    pl = decode_plan(b, rows, n, d, hidden, h.dtype, aligned,
+                     _build.sm_count(h.device))
+    zh = zp = None
+    if pl.body == "wgmma":   # float32 scratch of the shared products
+        zh = torch.empty((b * rows, hidden), dtype=torch.float32,
+                         device=h.device)
+        zp = torch.empty((b * n, hidden), dtype=torch.float32,
+                         device=h.device)
+        tile = (pl.zh_rows, pl.zp_rows, pl.stages_a, pl.stages_b,
+                pl.splits)
+    else:
+        tile = (pl.l_rows, pl.lanes, 0, 0, 0)
     err = _build.library().decode_demux_launch(
         h.data_ptr(), p.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        _build.DTYPE_CODES[h.dtype], b, rows, n, d, hidden,
-        _build.stream_of(h))
+        zh.data_ptr() if zh is not None else None,
+        zp.data_ptr() if zp is not None else None,
+        _build.DTYPE_CODES[h.dtype], b, rows, n, d, hidden, BODIES[pl.body],
+        *tile, _build.stream_of(h))
     _build.raise_on_error(name, err)
     _build.LAUNCHES[name] += 1
     return out

@@ -10,10 +10,11 @@ bf16 also rounds its probabilities to bf16 for the P·V product on the
 tensor cores (at most 2^-9 relative error per term), and the bf16
 index-embed demux's Hopper body rounds its activation gelu(zh + zp) to
 bf16 for the W2 product (the TPU kernel keeps it in f32) with
-tanh.approx.f32.  Each Hopper test asserts which body the launch plan
-chose.  The paged
-attention kernel is compared on query rows with at least one valid key
-(rows with none are garbage in every implementation).
+tanh.approx.f32, and so does the bf16 decode demux's flat-row body.
+Each Hopper test asserts which body the launch plan chose.  The paged
+attention kernel (split over a cluster of blocks per slot and KV head) is
+compared on query rows with at least one valid key (rows with none are
+garbage in every implementation).
 """
 import pytest
 import torch
@@ -145,14 +146,85 @@ def test_paged_kernel_matches_plain_version_on_card(cuda, dtype, tol, case,
 @pytest.mark.cuda
 def test_paged_kernel_kblock_widths_agree(cuda):
     """kblock_pages is a staging width only: the outputs for 1, 2 and 4
-    agree within f32 rounding."""
+    agree within f32 rounding, though the plan splits the table
+    differently for each (6, 3 and 2 splits per slot and KV head)."""
     args = _paged_case(cuda, torch.float32, 2, 4, 2, 32, 11, 4, 6, 2)
+    splits = [paged_kernel.plan(2, 2, 4, 2, 32, 4, 6, kb,
+                                torch.float32).splits for kb in (1, 2, 4)]
+    assert splits == [6, 3, 2]
+    _build.LAUNCHES.clear()
     outs = [paged_kernel.paged_decode_attention(
         *args, scale=32 ** -0.5, causal=True, kblock_pages=kb)
         for kb in (1, 2, 4)]
+    assert dict(_build.LAUNCHES) == {"paged_decode_attention": 3}
     live = _live(args, causal=True, window=None)
     for o in outs[1:]:
         assert ((o - outs[0]) * live).abs().max().item() <= 2e-5
+
+
+def _unmapped_split_case(dev, dtype, b, h, kvh, hd, ps, mp, c, seed=0):
+    """Tables with a run of 4 unmapped entries in the middle of every row
+    (a whole split where a split holds 4 entries or fewer), 80% of the
+    other entries mapped, q at the last C positions; every page no table
+    maps, page 0 too, holds 1e4 keys and values at positions that would
+    pass every mask."""
+    g = torch.Generator().manual_seed(seed)
+    pool = 1 + b * mp
+    q = torch.randn((b, c, h, hd), generator=g)
+    k = torch.full((pool, ps, kvh, hd), 1e4)
+    v = torch.full((pool, ps, kvh, hd), 1e4)
+    pos = torch.arange(ps, dtype=torch.int32).repeat(pool, 1)
+    bt = torch.full((b, mp), -1, dtype=torch.int32)
+    free = (1 + torch.randperm(pool - 1, generator=g)).tolist()
+    mid = (mp - 4) // 2
+    for i in range(b):
+        for j in list(range(mid)) + list(range(mid + 4, mp)):
+            if torch.rand((), generator=g) < 0.8:
+                p = free.pop()
+                bt[i, j] = p
+                k[p] = torch.randn((ps, kvh, hd), generator=g)
+                v[p] = torch.randn((ps, kvh, hd), generator=g)
+                pos[p] = j * ps + torch.arange(ps, dtype=torch.int32)
+    q_pos = (mp * ps - c + torch.arange(c, dtype=torch.int32)).repeat(b, 1)
+    floats = [t.to(dev, dtype) for t in (q, k, v)]
+    return floats + [t.to(dev) for t in (pos, bt, q_pos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", [  # (b, h, kvh, hd, ps, mp, c, causal,
+    (2, 4, 4, 64, 4, 12, 1, True, None),          # window): n_rep 1
+    (3, 8, 2, 128, 8, 16, 2, True, 8),            # n_rep 4, chunk 2
+    (2, 12, 12, 64, 16, 12, 4, False, None)])     # the slice's heads, C 4
+@pytest.mark.parametrize("kblock", [1, 2])
+def test_paged_kernel_split_merge_on_card(cuda, dtype, tol, case, kblock):
+    """S > 1 splits in one launch, one of them all unmapped, beside pages
+    planted with 1e4 that no table maps: the planted values must not leak
+    into the output, and the merge must give the empty split weight 0."""
+    *shape, causal, window = case
+    b, h, kvh, hd, ps, mp, c = shape
+    args = _unmapped_split_case(cuda, dtype, *shape)
+    plan = paged_kernel.plan(b, c, h, kvh, hd, ps, mp, kblock, dtype)
+    bt = args[4].cpu()
+    assert plan.splits > 1
+    assert any(bool((bt[:, list(plan.split_entries(s, mp))] < 0).all())
+               for s in range(plan.splits))
+    scale = hd ** -0.5
+    f32 = [t.float() if t.is_floating_point() else t for t in args]
+    want = paged_ref.paged_attention(*f32, scale=scale, causal=causal,
+                                     window=window)
+    _build.LAUNCHES.clear()
+    got = paged_kernel.paged_decode_attention(
+        *args, scale=scale, causal=causal, window=window,
+        kblock_pages=kblock).float()
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"paged_decode_attention": 1}
+    live = _live(args, causal=causal, window=window)
+    assert bool(live.any())
+    err = ((got - want) * live).abs().max().item()
+    assert err <= tol * max(1.0, (want * live).abs().max().item())
+    assert bool(torch.isfinite(got).all())
 
 
 @pytest.mark.cuda
@@ -216,6 +288,57 @@ def test_flash_ops_raises_on_what_the_kernel_does_not_take(cuda):
     q = torch.randn((1, 16, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float16"):
         flash_ops.flash_attention(q, q, q)
+
+
+# (B, N, C, d, H) of the decode demux: the serving slices' C 1 and their
+# prefill_chunk=4 form (tmux-12l-768h), and a ragged shape whose N·C = 9
+# rows per slot tile across slots unevenly (d, H multiples of 8).
+DECODE_CARD = [(8, 40, 1, 768, 1536), (8, 40, 4, 768, 1536),
+               (3, 3, 3, 96, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DECODE_CARD)
+@pytest.mark.parametrize("body", ["wgmma", "cluster"])
+def test_decode_demux_bodies_match_plain_version_on_card(cuda, shape, body):
+    """The bf16 decode demux against its plain version run in f32, through
+    each body: the plan takes the flat-row wgmma body for 16-byte-aligned
+    operands and the cluster body when h starts 8 bytes off (a view into a
+    larger buffer).  The wgmma body rounds gelu(zh + zp) to bf16 before the
+    W2 product and uses tanh.approx.f32; both stay inside the bf16
+    tolerance of 1e-2 x max(1, max|plain|)."""
+    b, n, c, d, hidden = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*s, scale=1.0):
+        return (scale * torch.randn(s, generator=g, device=cuda)).to(
+            torch.bfloat16)
+
+    h, p = randn(b, c, d), randn(b, n, d)
+    if body == "cluster":
+        buf = torch.empty(h.numel() + 4, dtype=h.dtype, device=cuda)
+        view = buf[4:].view(h.shape)
+        view.copy_(h)
+        h = view
+    aligned = h.data_ptr() % 16 == 0
+    assert demux_kernel.decode_plan(b, c, n, d, hidden, torch.bfloat16,
+                                    aligned).body == body
+    w1, b1 = randn(hidden, 2 * d, scale=(2 * d) ** -0.5), \
+        randn(hidden, scale=0.1)
+    w2, b2 = randn(d, hidden, scale=hidden ** -0.5), randn(d, scale=0.1)
+    mlp = SharedMLPStack([2 * d, hidden, d], device=cuda)
+    with torch.no_grad():
+        for layer, (w, bias) in zip(mlp.layers(), ((w1, b1), (w2, b2))):
+            layer.weight.copy_(w)
+            layer.bias.copy_(bias)
+        want = demux_ref.index_embed_demux(mlp, h.float(), p.float())
+        _build.LAUNCHES.clear()
+        got = demux_kernel.decode_demux(h, p, w1, b1, w2, b2).float()
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"decode_demux": 1}
+    assert got.shape == (b, n, c, d)
+    assert (got - want).abs().max().item() <= 1e-2 * max(
+        1.0, want.abs().max().item())
 
 
 # (B, N, L, d, H): the evaluation slice's demux (qwen1.5-4b) and a ragged

@@ -1,8 +1,9 @@
 """Launch plans of the port's Hopper kernels, checked on the CPU.
 
-The flash-attention and index-embed demux kernels take their tiling from
-a pure function in Python (``repro_torch.kernels.{attention,demux}.kernel.
-plan``): body, tiles, grid, ring stages and shared memory.  The kernels
+The flash-attention, index-embed demux and decode demux kernels take
+their tiling from a pure function in Python (``repro_torch.kernels.
+{attention,demux}.kernel.plan`` and ``demux.kernel.decode_plan``): body,
+tiles, grid, ring stages and shared memory.  The kernels
 themselves run only on a card (``tests/test_torch_cuda.py``); here the
 coverage, fit, alignment and body-selection logic is held to its rules:
 every output row or query row is written by exactly one block, a block's
@@ -175,3 +176,127 @@ def test_demux_wrapper_raises_on_what_no_body_takes():
                       for s in ((16, 16), (16,), (8, 16), (8,)))
     with pytest.raises(TypeError, match="float16"):
         demux_kernel.index_embed_demux(h, p, w1, b1, w2, b2)
+
+
+# (B, C, N, d, H) of the decode demux: the lock-step and paged slices
+# (tmux-12l-768h, C 1) and their prefill_chunk=4 form, N 1 / 5 / 40 at C 1
+# and 4, ragged N·C (neither a multiple nor a divisor of 64 rows).
+DECODE_SHAPES = [(8, 1, 40, 768, 1536), (8, 4, 40, 768, 1536),
+                 (3, 3, 3, 96, 160), (5, 1, 1, 64, 64), (5, 4, 1, 64, 64),
+                 (2, 1, 5, 16, 24), (3, 4, 5, 16, 24), (70, 1, 1, 8, 8),
+                 (2, 4, 40, 64, 128), (7, 3, 13, 24, 40), (1, 16, 3, 8, 8)]
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_plan_writes_every_output_row_once(shape):
+    b, c, n, d, hidden = shape
+    plan = demux_kernel.decode_plan(b, c, n, d, hidden, BF16)
+    assert plan.body == "wgmma"
+    gx, gy, gz = plan.grid_b
+    rows = [r for x, z in itertools.product(range(gx), range(gz))
+            for r in plan.output_rows((x, 0, z), b, n, c)]
+    assert len(rows) == len(set(rows)) == b * n * c
+    assert set(rows) == set(itertools.product(range(b), range(n), range(c)))
+    # 256 columns per cluster, the last tile ragged; the zh / zp GEMM
+    # covers all H hidden units in 96-column tiles and the B·C and B·N
+    # rows in 64-row tiles
+    assert (gy - 1) * 256 < d <= gy * 256
+    assert plan.grid_a == (-(-hidden // 96),
+                           -(-(b * c) // 64) + -(-(b * n) // 64))
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_plan_splits_the_hidden_axis_and_the_sum(shape):
+    """The cluster's blocks take every 64-unit hidden step once (none
+    empty, at most 8 blocks), and between them sum every group of 4 of the
+    tile's 64 x 256 partial once."""
+    b, c, n, d, hidden = shape
+    plan = demux_kernel.decode_plan(b, c, n, d, hidden, BF16)
+    n_k = -(-hidden // 64)
+    steps = [k for x in range(plan.splits)
+             for k in range(x * plan.k_per, min((x + 1) * plan.k_per, n_k))]
+    assert sorted(steps) == list(range(n_k))
+    assert 1 <= plan.splits <= 8 and (plan.splits - 1) * plan.k_per < n_k
+    assert plan.grid_b[0] == plan.splits
+    groups = [q for x in range(plan.splits) for q in plan.reduce_groups(x)]
+    assert sorted(groups) == list(range(64 * 64))
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_plan_stages_every_rows_operands(shape):
+    """Flat row r = (b·N + n)·C + c of tile y reads zh row b·C + c and zp
+    row b·N + n; both lie inside the boxes the tile stages."""
+    b, c, n, d, hidden = shape
+    plan = demux_kernel.decode_plan(b, c, n, d, hidden, BF16)
+    for z in range(plan.grid_b[2]):
+        zh0, zp0 = plan.zh_start(z), plan.zp_start(z)
+        for bi, ni, ci in plan.output_rows((0, 0, z), b, n, c):
+            assert 0 <= bi * c + ci - zh0 < plan.zh_rows
+            assert 0 <= bi * n + ni - zp0 < plan.zp_rows
+    assert plan.zh_rows <= min(256, b * c) and plan.zp_rows <= min(256,
+                                                                  b * n)
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_plan_fits_shared_memory(shape):
+    plan = demux_kernel.decode_plan(*shape, BF16)
+    assert plan.smem_a <= SMEM_LIMIT and plan.smem_b <= SMEM_LIMIT
+    assert plan.stages_a == 4 and 2 <= plan.stages_b <= 4
+    # ring stages start on the 128-byte swizzle's 1024-byte period: two
+    # f32 boxes each of zh and zp rows (128-byte rows), then the 32 KB W2
+    # tile (256 rows); the drained ring holds the f32 partial (64 rows of
+    # 260 floats); three 8 KB activation tiles follow
+    pad = lambda rows: -(-rows * 128 // 1024) * 1024   # noqa: E731
+    stage = 2 * pad(plan.zh_rows) + 2 * pad(plan.zp_rows) + 32768
+    ring = max(plan.stages_b * stage, 64 * 260 * 4)
+    assert plan.smem_b == 1024 + ring + 3 * 8192 + 16 * plan.stages_b
+    assert plan.smem_a == 1024 + 4 * (20480 + 16)   # 8 KB A, 12 KB W1
+
+
+@pytest.mark.parametrize("dtype,d,hidden,aligned,body", [
+    (BF16, 768, 1536, True, "wgmma"), (BF16, 96, 160, True, "wgmma"),
+    (BF16, 8, 8, True, "wgmma"),
+    (BF16, 768, 1536, False, "cluster"),   # an operand off 16 bytes
+    (BF16, 200, 300, True, "cluster"),     # H * 2 bytes not a multiple of 16
+    (BF16, 100, 64, True, "cluster"),      # d * 2 bytes
+    (F32, 768, 1536, True, "cluster"), (F32, 96, 160, True, "cluster")])
+def test_decode_body_selection(dtype, d, hidden, aligned, body):
+    plan = demux_kernel.decode_plan(8, 1, 40, d, hidden, dtype, aligned)
+    assert plan.body == body
+    if body == "cluster":
+        # the cluster body's own tiling: rh rows of C, all 40 lanes fit
+        assert (plan.l_rows, plan.lanes) == (1, 40)
+        assert plan.smem_b <= SMEM_LIMIT
+
+
+def test_decode_plan_at_the_slices():
+    """The slice's shapes: 5 x 3 lane tiles split 8 ways over the hidden
+    axis at C 1 (120 blocks) and 20 x 3 tiles split 2 ways at C 4; the
+    zh / zp GEMM 16 x (1 + 5) blocks; a card of fewer SMs splits less."""
+    plan = demux_kernel.decode_plan(8, 1, 40, 768, 1536, BF16)
+    assert plan.grid_b == (8, 3, 5) and plan.grid_a == (16, 6)
+    assert (plan.zh_rows, plan.zp_rows, plan.k_per) == (3, 65, 3)
+    plan = demux_kernel.decode_plan(8, 4, 40, 768, 1536, BF16)
+    assert plan.grid_b == (2, 3, 20)
+    assert (plan.zh_rows, plan.zp_rows) == (8, 17)
+    assert demux_kernel.decode_plan(8, 1, 40, 768, 1536, BF16,
+                                    sms=16).splits == 1
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (dict(dtype=torch.float16), TypeError), (dict(c=0), ValueError),
+    (dict(n=0), ValueError), (dict(d=0), ValueError),
+    (dict(c=200, n=1), ValueError)])   # 400 zh rows per tile: > a TMA box
+def test_decode_plan_raises_on_what_no_body_takes(bad, exc):
+    args = dict(b=4, c=1, n=3, d=64, hidden=128, dtype=BF16) | bad
+    with pytest.raises(exc):
+        demux_kernel.decode_plan(**args)
+
+
+def test_decode_wrapper_raises_on_what_no_body_takes():
+    h, p = torch.zeros((2, 1, 8), dtype=torch.float16), \
+        torch.zeros((2, 3, 8), dtype=torch.float16)
+    w1, b1, w2, b2 = (torch.zeros(s, dtype=torch.float16)
+                      for s in ((16, 16), (16,), (8, 16), (8,)))
+    with pytest.raises(TypeError, match="float16"):
+        demux_kernel.decode_demux(h, p, w1, b1, w2, b2)
