@@ -14,8 +14,12 @@ Phases, any failure of which ends the run with a non-zero exit:
      the card (run in float32 on the same inputs), in bf16 and f32, at the
      slices' shapes (the decode demux at C = 1 and C = 4) and at ragged
      ones (flash attention also with keys past Lk planted in memory; the
-     paged attention also at 64 pages per slot and with a split of the
-     block table all unmapped next to planted pages), naming the body or
+     paged attention also at 64 pages per slot, with a split of the
+     block table all unmapped next to planted pages, and at every limit
+     the previous kernel had: 17, 64 and 256 query rows, kblock 16 against
+     1, head dims 36, 80, 192 and 256, pages of 512 rows; flash attention
+     also at head dims 32, 80, 96, 192 and 256 and the attention shapes of
+     gemma3-4b and nemotron-4-340b), naming the body or
      split the launch plan chose, and time both with CUDA events (the
      attention kernels also beside ``scaled_dot_product_attention``, a
      yardstick the port never calls);
@@ -31,8 +35,12 @@ Phases, any failure of which ends the run with a non-zero exit:
      kernel off must give the same decode steps and tokens, and logits
      within LOGIT_TOL for the steps no sampled token was fed back in; a
      paged run with every kernel off must give the same slot resets and
-     peak pages; then a profile of one scheduler step and a short run at
-     prefill_chunk=4 (the kernel's C > 1 form);
+     peak pages; then a profile of one scheduler step, a short run at
+     prefill_chunk=4 (the kernel's C > 1 form), and the same 40 requests
+     at prefill_chunk=17 and kblock_pages=16 (two row groups, a K-block
+     width the previous kernel refused) held against the plain path:
+     equal steps, tokens and peak pages, teacher-forced logits within
+     LOGIT_TOL and greedy tokens equal where the margin is clear;
   5. the evaluation slice: ``qwen1.5-4b`` at full width, N=8, bf16 (random
      weights from --seed), ``Backbone(use_flash=True)`` with the mux and
      demux kernels, evaluates three batches of the retrieval task (2 x 8
@@ -89,12 +97,16 @@ SOURCES = {
 # The bf16 bodies redesigned for Hopper (TMA + wgmma): their SASS must
 # hold HGMMA and UTMALDG instructions; the paged kernel's (TMA, CUDA-core
 # math) UTMALDG instructions.
-REDESIGNED_BODIES = ("flash_attention_wgmma_kernel<64>",
-                     "flash_attention_wgmma_kernel<128>",
-                     "demux_gemm_kernel", "demux_lane_kernel",
-                     "decode_gemm_kernel", "decode_lane_kernel")
-TMA_BODIES = tuple(f"paged_split_kernel<{t}, {r}>"
-                   for t in ("bf16", "float") for r in (1, 4, 16))
+REDESIGNED_BODIES = tuple(
+    f"flash_attention_wgmma_kernel<{w}>"
+    for w in ("64, 96, 3", "128, 96, 3", "192, 48, 3", "256, 48, 3")) + (
+    "demux_gemm_kernel", "demux_lane_kernel", "decode_gemm_kernel",
+    "decode_lane_kernel")
+TMA_BODIES = tuple(f"paged_split_kernel<{t}, {r}, {v}, 1>"
+                   for t, v, rows in (("bf16", 1, (1, 4, 16)),
+                                      ("float", 1, (1, 4, 16)),
+                                      ("float", 2, (1, 4, 8)))
+                   for r in rows)
 
 
 def time_ms(fn, runs: int = 21, calls: int = 5, warmup: int = 3) -> float:
@@ -223,7 +235,10 @@ def check_kernels(torch, gen):
             x, v = x32.to(dtype), v32.to(dtype)
             want = mux_ref.hadamard_mux(x.float(), v.float())
             s = x.element_size()
-            cases.append(("hadamard_mux", dict(B=b, N=n, L=l, d=d), dtype,
+            pl = mux_kernel.plan(b, n, l, d, dtype)
+            cases.append(("hadamard_mux", dict(B=b, N=n, L=l, d=d,
+                                               slots=pl.slots,
+                                               blocks=pl.blocks), dtype,
                           lambda x=x, v=v: mux_kernel.hadamard_mux(x, v),
                           lambda x=x, v=v: mux_ref.hadamard_mux(x, v), want,
                           s * (b * n * l * d + n * d + b * l * d),
@@ -287,6 +302,11 @@ def check_kernels(torch, gen):
                                 bound_ms=bound_ms, bound_by=bound_by))
     print("[kernel] no single PyTorch call computes the Hadamard mux or "
           "the index-embed demux MLP, so library_ms is null")
+    # What a launch costs in this timing loop whatever the kernel does: a
+    # fill of the decode-shape mux's (8, 1, 768) bf16 output.
+    out = torch.empty((8, 1, 768), dtype=torch.bfloat16, device="cuda")
+    print(f"[kernel] launch floor: zero_ of a (8, 1, 768) bf16 tensor "
+          f"{time_ms(out.zero_):.4f} ms")
     return results
 
 
@@ -389,6 +409,28 @@ def check_paged_kernel(torch, gen):
          dict(slice_kw, mp=64, c=1, lengths=[64 * 16 - 3] * 8),
          False, None, (1, 2)),
         (UNMAPPED, dict(slice_kw, mp=16, c=1, hole=8), True, None, (1, 2)),
+        # shapes the earlier kernel refused (ROADMAP Queue C 1-3):
+        # 17 query rows (prefill_chunk 17, two row groups) at kblock 16 and
+        # 1, 64 rows (C 16 x n_rep 4), 256 (C 32 x n_rep 8, jamba's
+        # grouping), head dims 36 (no TMA: the copy body), 80, 192
+        # (nemotron-4-340b: 96 heads over 8) and 256 (gemma3-4b: 8 over 4),
+        # pages of 512 rows
+        ("rows 17", dict(slice_kw, mp=9, c=17, lengths=tmux_lengths),
+         False, None, (16, 1)),
+        ("rows 64", dict(slice_kw, h=16, kvh=4, mp=9, c=16,
+                         lengths=tmux_lengths), False, None, (1,)),
+        ("rows 256", dict(b=4, h=64, kvh=8, hd=128, ps=16, mp=9, c=32,
+                          lengths=tmux_lengths[:4]), False, None, (1,)),
+        ("hd 36", dict(b=8, h=8, kvh=2, hd=36, ps=16, mp=9, c=1,
+                       lengths=tmux_lengths), False, None, (1,)),
+        ("hd 80", dict(b=8, h=8, kvh=2, hd=80, ps=16, mp=9, c=1,
+                       lengths=tmux_lengths), False, None, (1,)),
+        ("hd 192", dict(b=8, h=96, kvh=8, hd=192, ps=16, mp=9, c=1,
+                        lengths=tmux_lengths), False, None, (1,)),
+        ("hd 256", dict(b=8, h=8, kvh=4, hd=256, ps=16, mp=9, c=1,
+                        lengths=tmux_lengths), False, None, (1,)),
+        ("page 512", dict(slice_kw, ps=512, mp=3, c=1,
+                          lengths=[3 * 512 - 7] * 8), False, None, (1,)),
     ]
     results = []
     with torch.no_grad():
@@ -424,6 +466,7 @@ def check_paged_kernel(torch, gen):
                 flops = 4 * c * h * hd * mapped * ps
                 dname = str(dtype).removeprefix("torch.")
                 bound_ms, bound_by = bound(nbytes, flops, dname)
+                outs = {}
                 for kb in kblocks:
                     pl = paged_kernel.plan(b, c, h, kvh, hd, ps,
                                            bt.shape[1], kb, dtype)
@@ -438,7 +481,7 @@ def check_paged_kernel(torch, gen):
                         return paged_kernel.paged_decode_attention(
                             *args, scale=scale, causal=causal, window=window,
                             kblock_pages=kb)
-                    got = kern().float()
+                    got = outs[kb] = kern().float()
                     torch.cuda.synchronize()
                     err = ((got - want) * live).abs().max().item()
                     tol = TOL[dname] * max(
@@ -447,7 +490,8 @@ def check_paged_kernel(torch, gen):
                     shape = dict(B=b, C=c, H=h, KVH=kvh, hd=hd, ps=ps,
                                  max_pages=bt.shape[1], mapped=mapped,
                                  kblock=kb, causal=causal, window=window,
-                                 splits=pl.splits)
+                                 splits=pl.splits, groups=pl.groups,
+                                 box_rows=pl.box_rows, body=pl.body)
                     print(f"[kernel] paged_decode_attention {label} {shape} "
                           f"{dname}: max_abs_err {err:.3g} (tol {tol:.3g}), "
                           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -463,6 +507,21 @@ def check_paged_kernel(torch, gen):
                         shape=shape, dtype=dname, max_abs_err=err, ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms))
+                # kblock_pages moves only the split boundaries: outputs at
+                # every width agree to the merge's rounding (f32) or one
+                # bf16 rounding of the output
+                for kb in kblocks[1:]:
+                    diff = ((outs[kb] - outs[kblocks[0]]) * live).abs().max()
+                    scale_out = (outs[kblocks[0]] * live).abs().max().item()
+                    agree = (2e-5 if dtype == torch.float32 else 2 ** -7) \
+                        * max(1.0, scale_out)
+                    print(f"[kernel] paged_decode_attention {label} {dname}: "
+                          f"kblock {kb} vs {kblocks[0]} differ by "
+                          f"{diff.item():.3g} (tol {agree:.3g})")
+                    if not diff.item() <= agree:
+                        raise SystemExit(f"[kernel] FAIL: paged "
+                                         f"{label} {dname}: kblock {kb} and "
+                                         f"{kblocks[0]} disagree")
     print("[kernel] library_ms of paged_decode_attention is "
           "scaled_dot_product_attention on K/V already gathered into "
           "position order; it excludes the gather")
@@ -499,6 +558,19 @@ def flash_cases(torch, gen):
         randn(1, 200, 2, 128)
     for causal in (True, False):
         cases.append((PLANTED, q, k, v, causal, None))
+    # every head dim up to 256 (the earlier kernel took 64 and 128): bf16
+    # multiples of 8 on the wgmma body, the rest on CUDA cores
+    for hd in (32, 80, 96, 192, 256):
+        q, k, v = (randn(1, 300, 4, hd) for _ in range(3))
+        for causal in (True, False):
+            cases.append((f"hd {hd}", q, k, v, causal, None))
+    # the attention shapes of the dense family's wide heads, KV repeated
+    # as the flash path takes it: gemma3-4b (8 heads over 4 KV heads of
+    # 256, L 1024) and nemotron-4-340b (96 heads of 192)
+    for label, (b, l, h, hd) in (("gemma3-4b", (2, 1024, 8, 256)),
+                                 ("nemotron-4-340b", (1, 1024, 96, 192))):
+        q, k, v = (randn(b, l, h, hd) for _ in range(3))
+        cases.append((label, q, k, v, True, None))
     q = randn(1, 32, 2, 64)
     cases.append(("scale 0.05", q, q, q, True, 0.05))
     q = randn(1, 128, 1, 64, scale=8.0)
@@ -822,7 +894,72 @@ def run_paged_slice(torch, seed: int):
     if cstats.finished != 40 or claunch.get("paged_decode_attention", 0) \
             != cfg.n_layers * cstats.decode_steps:
         raise SystemExit("[paged] FAIL: the prefill_chunk=4 run")
+    run_wide_chunk(torch, scheduler, variant, paged, trace[:40],
+                   cfg.n_layers)
     return launches
+
+
+def run_wide_chunk(torch, scheduler, variant, paged, trace, n_layers):
+    """The same 40 requests at prefill_chunk=17 and kblock_pages=16 (17
+    query rows per slot, two row groups in the paged kernel; a K-block
+    width the earlier kernel refused), every kernel on, held against the
+    same run on the plain path (paged, every kernel off): equal decode steps,
+    generated tokens and peak pages; the teacher-forced steps' logits
+    within LOGIT_TOL and their greedy tokens equal wherever the plain
+    top-1 margin exceeds twice that tolerance."""
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.kernels import _build
+
+    wide = dict(prefill_chunk=17, kblock_pages=16)
+    runs = {}
+    for label, sched in (
+            ("kernels", scheduler(variant(dataclasses.replace(paged, **wide),
+                                          True))),
+            ("plain", scheduler(variant(ServingConfig(
+                paged=True, page_size=paged.page_size, **wide), False)))):
+        forced = []
+        record_teacher_forced(sched, forced)
+        _build.LAUNCHES.clear()
+        stats = sched.run([r.fresh() for r in trace])
+        torch.cuda.synchronize()
+        runs[label] = (stats, forced, dict(_build.LAUNCHES))
+    (stats, forced, launch), (pstats, pforced, plaunch) = (runs["kernels"],
+                                                           runs["plain"])
+    print(f"[paged] prefill_chunk=17, kblock_pages=16 on the first "
+          f"{len(trace)} requests: {stats.finished} finished, "
+          f"{stats.decode_steps} decode steps, {stats.generated_tokens} "
+          f"tokens, peak {stats.peak_pages} pages, launches {launch}; "
+          f"plain path launches {plaunch}")
+    if stats.finished != len(trace) or plaunch:
+        raise SystemExit("[paged] FAIL: the prefill_chunk=17 run")
+    want = {"paged_decode_attention": n_layers * stats.decode_steps}
+    if launch.get("paged_decode_attention") != want[
+            "paged_decode_attention"] or not (launch.get("hadamard_mux")
+                                              and launch.get("decode_demux")):
+        raise SystemExit(f"[paged] FAIL: prefill_chunk=17 launches {launch}")
+    for what in ("decode_steps", "generated_tokens", "peak_pages"):
+        a, b = getattr(stats, what), getattr(pstats, what)
+        print(f"[paged] prefill_chunk=17 {what}: kernels {a}, plain {b}")
+        if a != b:
+            raise SystemExit(f"[paged] FAIL: prefill_chunk=17 {what} differ")
+    if not forced or len(forced) != len(pforced):
+        raise SystemExit(f"[paged] FAIL: prefill_chunk=17 teacher-forced "
+                         f"steps {len(forced)} vs {len(pforced)}")
+    for i, (got, ref) in enumerate(zip(forced, pforced)):
+        err = (got - ref).abs().max().item()
+        tol = LOGIT_TOL * ref.abs().max().item()
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+        same = got.argmax(-1) == ref.argmax(-1)
+        print(f"[paged] prefill_chunk=17 teacher-forced step {i}: logits "
+              f"max_abs_err {err:.4g} (tol {tol:.4g}), greedy tokens equal "
+              f"on {int(same[clear].sum())} of {int(clear.sum())} lanes "
+              f"with a clear margin ({same.float().mean().item():.4f} of "
+              f"all)")
+        if not (err <= tol and bool(torch.isfinite(got).all())
+                and bool(same[clear].all())):
+            raise SystemExit(f"[paged] FAIL: prefill_chunk=17 step {i} "
+                             f"disagrees with the plain path")
 
 
 def device_rows(events, steps: int) -> list[tuple[float, str]]:

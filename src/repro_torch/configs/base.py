@@ -201,10 +201,9 @@ class ModelConfig:
                         f"width_set member {w} violates mux strategy "
                         f"{self.mux.strategy!r} constraints at d_model="
                         f"{self.d_model}: {e}") from e
-        # The paged kernel stages kblock_pages pages of K and V in shared
-        # memory: a stage that cannot fit fails here with the knob to turn,
-        # not at the first launch mid-serve.  The plain version has no
-        # stage, so the check applies only with the kernel on.
+        # The reference's K-block check (its VMEM budget), kept so that the
+        # port takes exactly the kblock_pages the reference takes; it
+        # applies, as there, only with the kernel on.
         if self.serving.paged and self.serving.use_kernel:
             from repro_torch.kernels.paged_attention.kernel import \
                 validate_kblock

@@ -11,8 +11,11 @@
 // query's index (both absolute, aligned top-left, so Lq != Lk is allowed);
 // masked scores are NEG_INF = -1e30, not -inf; the running max and sum are
 // float32; the output is acc / max(l, 1e-30).  Query rows past Lq are
-// never written.  One departure, in bf16 only: the probabilities P are
-// rounded to bf16 for the P.V product on the tensor cores (the TPU kernel
+// never written.  Like the TPU kernel, it takes any head_dim (here 1 to
+// 256): both bodies pad the head axis with zeros to HDP, the next multiple
+// of 64, which adds 0 to every score and writes no column past hd.  One
+// departure, in the bf16 Hopper body only: the probabilities P are rounded
+// to bf16 for the P.V product on the tensor cores (the TPU kernel
 // keeps them in float32; the running sum l is taken over the float32 P).
 // That adds at most 2^-9 of relative error per term, well inside the
 // bf16 tolerance of 1e-2 x max(1, max|out|) the kernel is held to.
@@ -35,34 +38,45 @@
 // holds a valid key for every row that is written, so an all-masked tile
 // never comes first (its p = exp(0) = 1 would otherwise count).  Query
 // tiles are dispatched heaviest first (blockIdx.z == 0 holds the last
-// query rows) so that the long causal rows do not start last.  The launch plan (tile sizes, ring
-// stages, threads, shared memory) is computed in Python
-// (repro_torch/kernels/attention/kernel.py: `plan`) and checked here
-// against what each body was compiled for.
+// query rows) so that the long causal rows do not start last.  The launch
+// plan (body, tile sizes, ring stages, threads, shared memory) is computed
+// in Python (repro_torch/kernels/attention/kernel.py: `plan`) and checked
+// here against what each body was compiled for.
 //
-// bf16 (the evaluation path), warp-specialised in the manner of
-// FlashAttention-3: a block of 384 threads covers a 128-row query tile.
+// bf16 where hd is a multiple of 8 and the tensors start on 16-byte
+// boundaries (TMA's stride rules; the evaluation path), warp-specialised in
+// the manner of FlashAttention-3: a block of 384 threads covers a 128-row
+// query tile.
 //   - Warpgroup 2 is the producer: one thread issues TMA loads (4-D tensor
-//     maps over (B, L, H, hd), 64-column boxes with the 128-byte swizzle)
-//     of Q once and of 96-key K and V tiles into a 3-stage ring, each
-//     stage with full and empty mbarriers; `setmaxnreg` drops it to 24
-//     registers.
+//     maps over (B, L, H, hd), 64-column boxes with the 128-byte swizzle,
+//     columns past hd filled with zeros by TMA) of Q once and of BK-key K
+//     and V tiles into a ring of KST stages, each stage with full and empty
+//     mbarriers; `setmaxnreg` drops it to 24 registers.
 //   - Warpgroups 0 and 1 each own 64 query rows and rise to 240
-//     registers.  S = Q K^T is one `wgmma` chain (m64n96k16, both operands
+//     registers.  S = Q K^T is one `wgmma` chain (m64nBKk16, both operands
 //     K-major in shared memory); the online softmax runs in float32 on the
 //     accumulators (log2 units, ex2.approx); P is packed to bf16 in
 //     registers in the A-fragment layout and O += P V is a second `wgmma`
-//     chain with A from registers and V N-major in shared memory (the
-//     transposed-B mode of 16-bit types).  Tile kt's S is issued together
-//     with tile kt-1's P V, so a warpgroup's softmax overlaps its own
-//     P V, and the two warpgroups take turns issuing (named barriers), so
-//     one's softmax overlaps the other's products.  A K stage is freed as
-//     soon as its S is computed, a V stage after its P V.
-//   - 96-key tiles: with 128, S (64 registers), P (32) and O (64) live at
-//     once made ptxas spill P and serialise every wgmma (warning C7512),
-//     whatever the setmaxnreg count; 64 and 96 do not spill, and on an
-//     H100 96 ran faster than 64 and 128 at the evaluation shape and at
-//     L 8192.
+//     chain (n64 / n128 pieces across HDP) with A from registers and V
+//     N-major in shared memory (the transposed-B mode of 16-bit types).
+//     Tile kt's S is issued together with tile kt-1's P V, so a
+//     warpgroup's softmax overlaps its own P V, and the two warpgroups take
+//     turns issuing (named barriers), so one's softmax overlaps the
+//     other's products.  A K stage is freed as soon as its S is computed,
+//     a V stage after its P V.
+//   - Tiles per width: HDP 64 and 128 take 96-key tiles and 3 stages
+//     (with 128 keys, S (64 registers), P (32) and O (64) live at once
+//     made ptxas spill P and serialise every wgmma, warning C7512; on an
+//     H100 96 ran faster than 64 and 128 at the evaluation shape and at L
+//     8192).  HDP 192 and 256 keep the 128-row Q tile with 48-key tiles
+//     and 3 stages (157 and 209 KB).  ptxas gives every thread of a
+//     384-thread block at most 168 registers whatever setmaxnreg grants
+//     later: at 192, O (96), S (24) and P (12) fit, where 64-key tiles
+//     spilled 48 bytes (C7512) and ran slower on an H100; at 256, O
+//     alone is 128 and every key tile tried (32, 48, 64) spills and
+//     serialises the wgmma (C7512), so that width runs well behind
+//     scaled_dot_product_attention (splitting O's columns between the two
+//     consumer warpgroups is the way out, not taken here).
 //   - Query tiles are laid from the end of the sequence, so the ragged
 //     one is the first (rows below 0 read TMA's zeros, are masked as
 //     keys-after-query and never written): under `causal` it does the
@@ -70,20 +84,24 @@
 //   - TMA fills keys past Lk with zeros, which would score 0 and count:
 //     they are masked explicitly, like the causal upper triangle, on the
 //     tiles that reach past Lk or the diagonal.
-// Shared memory: Q 32 KB + 3 stages x (K + V) 24 KB each at hd 128 (177 KB),
-// one block per SM.
 //
-// float32: no tensor-core path keeps float32 products, so 256 threads work
-// on CUDA cores, 64-row query tiles against 64-key tiles: tiles converted
-// to float32 in shared memory, thread (rg, cg) = (tid / 16, tid % 16)
-// scoring rows 4 rg .. 4 rg + 3 against keys cg + 16 j (keys interleaved so
-// that a quarter-warp's 16-byte reads of K fall in distinct banks) and
-// holding a 4-row register tile of O; the next tile is loaded into
-// registers while the current one is consumed.
+// float32, and bf16 that TMA cannot read: no tensor-core path keeps
+// float32 products, so 256 threads work on CUDA cores, 64-row query tiles
+// against 64-key tiles: tiles converted to float32 (HDP columns, zeros past
+// hd) in shared memory, thread (rg, cg) = (tid / 16, tid % 16) scoring rows
+// 4 rg .. 4 rg + 3 against keys cg + 16 j (keys interleaved so that a
+// quarter-warp's 16-byte reads of K fall in distinct banks) and holding a
+// 4-row register tile of O (HDP / 16 columns); the next tile is loaded
+// into registers while the current one is consumed where it takes at most
+// 8 16-byte chunks per thread (f32 to HDP 128, bf16 to 256), else it is
+// loaded when it is staged.  Rows whose bytes are a multiple of 16 on
+// 16-byte-aligned tensors move in 16-byte chunks, others element by
+// element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -96,7 +114,7 @@ constexpr int kBK = 64;        // keys per staged tile
 constexpr int kPS = kBK + 4;   // float stride of a row of P in shared memory
 
 // ---------------------------------------------------------------------------
-// float32 on CUDA cores
+// CUDA cores (float32, and bf16 that TMA cannot read)
 // ---------------------------------------------------------------------------
 
 // Reductions over the 16 threads of a row group (lanes 0-15 or 16-31).
@@ -111,57 +129,94 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// A 64-row tile of q, k or v moves as float4 vectors: each thread holds
-// kVecs of them between the global load and the shared-memory store.
-template <int HD>
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// A 64-row tile of q, k or v moves as 16-byte chunks of kVec elements:
+// each thread holds kChunks of them between the global load and the
+// shared-memory store (as float32, kStride floats per row).
+template <typename T, int HDP>
 struct TileShape {
-  static constexpr int kVecRow = HD / 4;  // vectors per row
-  static constexpr int kVecs = 64 * kVecRow / kThreads;
-  static constexpr int kStride = HD + 4;  // float stride of a staged row
+  static constexpr int kVec = 16 / sizeof(T);       // elements per chunk
+  static constexpr int kChunkRow = HDP / kVec;      // chunks per row
+  static constexpr int kChunks = 64 * kChunkRow / kThreads;
+  static constexpr int kStride = HDP + 4;           // floats per staged row
+  static constexpr bool kPrefetch = kChunks <= 8;   // next tile in registers
 };
 
-template <int HD>
-__device__ __forceinline__ void load_tile(float4 (&r)[TileShape<HD>::kVecs],
-                                          const float* __restrict__ base,
-                                          int row0, int L, size_t row_stride) {
-  using S = TileShape<HD>;
+// Loads rows [row0, row0 + 64) of a (L, row_stride) view, columns [0, HDP):
+// zeros past L and past hd; 16-byte loads when `vec` (hd * size a multiple
+// of 16 and 16-byte-aligned rows), else element by element.
+template <typename T, int HDP>
+__device__ __forceinline__ void load_tile(
+    uint4 (&r)[TileShape<T, HDP>::kChunks], const T* __restrict__ base,
+    int row0, int L, size_t row_stride, int hd, bool vec) {
+  using S = TileShape<T, HDP>;
+  using Raw = std::conditional_t<sizeof(T) == 2, uint16_t, uint32_t>;
 #pragma unroll
-  for (int j = 0; j < S::kVecs; ++j) {
+  for (int j = 0; j < S::kChunks; ++j) {
     const int idx = threadIdx.x + kThreads * j;
-    const int row = idx / S::kVecRow, col = idx % S::kVecRow;
-    r[j] = make_float4(0.f, 0.f, 0.f, 0.f);  // rows past L stage as zeros
-    if (row0 + row < L)
-      r[j] = __ldg(reinterpret_cast<const float4*>(
-                       base + (size_t)(row0 + row) * row_stride) + col);
+    const int row = idx / S::kChunkRow, col = (idx % S::kChunkRow) * S::kVec;
+    r[j] = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + row >= L || col >= hd) continue;
+    const T* p = base + (size_t)(row0 + row) * row_stride + col;
+    if (vec) {
+      r[j] = __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+      alignas(16) Raw e[S::kVec];
+#pragma unroll
+      for (int i = 0; i < S::kVec; ++i)
+        e[i] = col + i < hd ? reinterpret_cast<const Raw*>(p)[i] : Raw(0);
+      r[j] = *reinterpret_cast<const uint4*>(e);
+    }
   }
 }
 
-template <int HD>
+template <typename T, int HDP>
 __device__ __forceinline__ void store_tile(
-    float* __restrict__ dst, const float4 (&r)[TileShape<HD>::kVecs]) {
-  using S = TileShape<HD>;
+    float* __restrict__ dst, const uint4 (&r)[TileShape<T, HDP>::kChunks]) {
+  using S = TileShape<T, HDP>;
 #pragma unroll
-  for (int j = 0; j < S::kVecs; ++j) {
+  for (int j = 0; j < S::kChunks; ++j) {
     const int idx = threadIdx.x + kThreads * j;
-    const int row = idx / S::kVecRow, col = idx % S::kVecRow;
-    *reinterpret_cast<float4*>(dst + row * S::kStride + col * 4) = r[j];
+    const int row = idx / S::kChunkRow, col = (idx % S::kChunkRow) * S::kVec;
+    float* d = dst + row * S::kStride + col;
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<uint4*>(d) = r[j];
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r[j]);
+      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+      const float2 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
+      *reinterpret_cast<float4*>(d) = make_float4(a.x, a.y, b.x, b.y);
+      *reinterpret_cast<float4*>(d + 4) = make_float4(c.x, c.y, e.x, e.y);
+    }
   }
 }
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return (size_t)(kBQ * (HD + 4) + 2 * kBK * (HD + 4) + kBQ * kPS) *
+template <int HDP>
+constexpr size_t core_smem_bytes() {
+  return (size_t)(kBQ * (HDP + 4) + 2 * kBK * (HDP + 4) + kBQ * kPS) *
          sizeof(float);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int Lq, int Lk,
-    int H, float scale, int causal) {
-  using S = TileShape<HD>;
+template <typename T, int HDP>
+__global__ void __launch_bounds__(kThreads) flash_attention_core_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out, int Lq, int Lk, int H,
+    int hd, float scale, int causal, int vec) {
+  using S = TileShape<T, HDP>;
   constexpr int kS = S::kStride;
-  constexpr int kG = HD / 64;  // 4-column groups per thread: 1 or 2
+  constexpr int kG = HDP / 64;  // 4-column groups per thread
 
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // kBQ x kS
@@ -172,22 +227,24 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
   const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (int)(gridDim.z - 1 - blockIdx.z) * kBQ;
-  const size_t rs = (size_t)H * HD;  // elements from one row to the next
-  const float* qb = q + ((size_t)b * Lq * H + h) * HD;
-  const float* kb = k + ((size_t)b * Lk * H + h) * HD;
-  const float* vb = v + ((size_t)b * Lk * H + h) * HD;
+  const size_t rs = (size_t)H * hd;  // elements from one row to the next
+  const T* qb = q + ((size_t)b * Lq * H + h) * hd;
+  const T* kb = k + ((size_t)b * Lk * H + h) * hd;
+  const T* vb = v + ((size_t)b * Lk * H + h) * hd;
 
   int n_kt = (Lk + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (min(q0 + kBQ, Lq) - 1) / kBK + 1);
 
-  float4 rk[S::kVecs], rv[S::kVecs];
+  uint4 rk[S::kChunks], rv[S::kChunks];
   {
-    float4 rq[S::kVecs];
-    load_tile<HD>(rq, qb, q0, Lq, rs);
-    store_tile<HD>(qs, rq);
+    uint4 rq[S::kChunks];
+    load_tile<T, HDP>(rq, qb, q0, Lq, rs, hd, vec);
+    store_tile<T, HDP>(qs, rq);
   }
-  load_tile<HD>(rk, kb, 0, Lk, rs);
-  load_tile<HD>(rv, vb, 0, Lk, rs);
+  if constexpr (S::kPrefetch) {
+    load_tile<T, HDP>(rk, kb, 0, Lk, rs, hd, vec);
+    load_tile<T, HDP>(rv, vb, 0, Lk, rs, hd, vec);
+  }
 
   float m[4], l[4], acc[4][4 * kG];
 #pragma unroll
@@ -200,12 +257,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
-    store_tile<HD>(ks, rk);
-    store_tile<HD>(vs, rv);
+    if constexpr (!S::kPrefetch) {
+      load_tile<T, HDP>(rk, kb, k0, Lk, rs, hd, vec);
+      load_tile<T, HDP>(rv, vb, k0, Lk, rs, hd, vec);
+    }
+    store_tile<T, HDP>(ks, rk);
+    store_tile<T, HDP>(vs, rv);
     __syncthreads();  // K, V (and before the first tile, Q) are staged
-    if (kt + 1 < n_kt) {
-      load_tile<HD>(rk, kb, k0 + kBK, Lk, rs);
-      load_tile<HD>(rv, vb, k0 + kBK, Lk, rs);
+    if constexpr (S::kPrefetch) {
+      if (kt + 1 < n_kt) {
+        load_tile<T, HDP>(rk, kb, k0 + kBK, Lk, rs, hd, vec);
+        load_tile<T, HDP>(rv, vb, k0 + kBK, Lk, rs, hd, vec);
+      }
     }
 
     // Scores of rows 4 rg + i against keys cg + 16 j.
@@ -215,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
+    for (int d = 0; d < HDP; d += 4) {
       float4 qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -300,12 +363,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     const int qi = q0 + rg * 4 + i;
     if (qi >= Lq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = out + ((size_t)b * Lq + qi) * rs + (size_t)h * HD;
+    T* orow = out + ((size_t)b * Lq + qi) * rs + (size_t)h * hd;
 #pragma unroll
     for (int g = 0; g < kG; ++g)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        orow[g * 64 + cg * 4 + c] = acc[i][4 * g + c] / denom;
+      for (int c = 0; c < 4; ++c) {
+        const int col = g * 64 + cg * 4 + c;
+        if (col < hd) orow[col] = from_f<T>(acc[i][4 * g + c] / denom);
+      }
   }
 }
 
@@ -314,41 +379,57 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 // ---------------------------------------------------------------------------
 
 constexpr int kWgBQ = 128;     // query rows per block: 2 consumers x 64
-constexpr int kWgBK = 96;      // keys per K/V tile
-constexpr int kStages = 3;     // depth of the K/V ring
 constexpr int kConsumers = 2;  // consumer warpgroups
 constexpr int kWgThreads = (kConsumers + 1) * 128;
 
-template <int HD>
+template <int HDP, int BK, int KST>
 struct WgLayout {
-  static constexpr int kQ = kWgBQ * HD * 2;   // bytes of the Q tile
-  static constexpr int kKV = kWgBK * HD * 2;  // bytes of one K or V tile
-  static constexpr int kBars = 1 + 4 * kStages;
+  static constexpr int kQ = kWgBQ * HDP * 2;  // bytes of the Q tile
+  static constexpr int kKV = BK * HDP * 2;    // bytes of one K or V tile
+  static constexpr int kBars = 1 + 4 * KST;
   // 1024 bytes of slack to align the tiles to the swizzle period.
   static constexpr size_t kBytes =
-      1024 + kQ + 2 * kStages * kKV + kBars * sizeof(uint64_t);
+      1024 + kQ + 2 * KST * kKV + kBars * sizeof(uint64_t);
 };
 
-template <int HD>
+// O (64 x HDP) += P (64 x 16, registers) V (16 x HDP, N-major, column
+// boxes BK * 128 bytes apart): n128 pieces, then an n64 piece where HDP is
+// an odd multiple of 64.  O's fragments of columns [128 i, 128 i + 128)
+// are o[64 i .. 64 i + 63], so the pieces are slices of o.
+template <int HDP, int BK>
+__device__ __forceinline__ void pv_chunk(float (&o)[HDP / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t dv) {
+  using namespace hopper;
+#pragma unroll
+  for (int i = 0; i < HDP / 128; ++i)
+    wgmma_rs_n128<1>(*reinterpret_cast<float(*)[64]>(o + 64 * i), a,
+                     desc_add(dv, 2 * i * BK * 128), 1);
+  if constexpr (HDP % 128)
+    wgmma_rs_n64<1>(*reinterpret_cast<float(*)[32]>(o + HDP / 2 - 32), a,
+                    desc_add(dv, (HDP / 64 - 1) * BK * 128), 1);
+}
+
+template <int HDP, int BK, int KST>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap mq,
     const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ out,
-    int Lq, int Lk, int H, float scale, int causal) {
+    int Lq, int Lk, int H, int hd, float scale, int causal) {
   using namespace hopper;
-  using S = WgLayout<HD>;
-  constexpr int kBoxes = HD / 64;  // 128-byte column boxes per row
-  constexpr int kChunks = kWgBK / 16;  // 16-key steps of P V
+  using S = WgLayout<HDP, BK, KST>;
+  constexpr int kBoxes = HDP / 64;   // 128-byte column boxes per row
+  constexpr int kChunks = BK / 16;   // 16-key steps of P V
 
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs = align1024(smem_raw);    // box c at c * kWgBQ * 128
-  uint8_t* ks = qs + S::kQ;             // stage s at s * S::kKV, box c
-  uint8_t* vs = ks + kStages * S::kKV;  // at c * kWgBK * 128 within it
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * S::kKV);
+  uint8_t* qs = align1024(smem_raw);  // box c at c * kWgBQ * 128
+  uint8_t* ks = qs + S::kQ;           // stage s at s * S::kKV, box c
+  uint8_t* vs = ks + KST * S::kKV;    // at c * BK * 128 within it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + KST * S::kKV);
   uint64_t* k_full = q_full + 1;
-  uint64_t* k_empty = k_full + kStages;
-  uint64_t* v_full = k_empty + kStages;
-  uint64_t* v_empty = v_full + kStages;
+  uint64_t* k_empty = k_full + KST;
+  uint64_t* v_full = k_empty + KST;
+  uint64_t* v_empty = v_full + KST;
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -356,12 +437,12 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
   // (q0 < 0; its rows below 0 read zeros and are never written), where
   // the causal mask leaves least work.  blockIdx.z == 0 is the heaviest.
   const int q0 = Lq - (int)(blockIdx.z + 1) * kWgBQ;
-  int n_kt = (Lk + kWgBK - 1) / kWgBK;
-  if (causal) n_kt = min(n_kt, (q0 + kWgBQ - 1) / kWgBK + 1);
+  int n_kt = (Lk + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (q0 + kWgBQ - 1) / BK + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < KST; ++s) {
       mbar_init(k_full + s, 1);
       mbar_init(v_full + s, 1);
       mbar_init(k_empty + s, kConsumers * 4);  // one arrival per warp
@@ -379,18 +460,18 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
       for (int c = 0; c < kBoxes; ++c)
         tma_load_4d(qs + c * kWgBQ * 128, &mq, q_full, c * 64, h, q0, b);
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kStages;
-        const uint32_t ph = (kt / kStages) & 1;
+        const int s = kt % KST;
+        const uint32_t ph = (kt / KST) & 1;
         mbar_wait(k_empty + s, ph ^ 1);
         mbar_arrive_expect_tx(k_full + s, S::kKV);
         for (int c = 0; c < kBoxes; ++c)
-          tma_load_4d(ks + s * S::kKV + c * kWgBK * 128, &mk, k_full + s,
-                      c * 64, h, kt * kWgBK, b);
+          tma_load_4d(ks + s * S::kKV + c * BK * 128, &mk, k_full + s,
+                      c * 64, h, kt * BK, b);
         mbar_wait(v_empty + s, ph ^ 1);
         mbar_arrive_expect_tx(v_full + s, S::kKV);
         for (int c = 0; c < kBoxes; ++c)
-          tma_load_4d(vs + s * S::kKV + c * kWgBK * 128, &mv, v_full + s,
-                      c * 64, h, kt * kWgBK, b);
+          tma_load_4d(vs + s * S::kKV + c * BK * 128, &mv, v_full + s,
+                      c * 64, h, kt * BK, b);
       }
     }
   } else {
@@ -406,49 +487,47 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
     const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
     const uint8_t* qw = qs + wg * 64 * 128;
     const int my_turn = 1 + wg, other_turn = 2 - wg;
-    float o[HD / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float o[HDP / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-    float sc[kWgBK / 2];  // S of the current tile: n8-tile j holds keys
-                          // 8 j + 2 t, +1 of rows r0 (0, 1), r0 + 8 (2, 3)
+    for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+    float sc[BK / 2];  // S of the current tile: n8-tile j holds keys
+                       // 8 j + 2 t, +1 of rows r0 (0, 1), r0 + 8 (2, 3)
     uint32_t pf[kChunks][4];  // P of the previous tile, bf16, A fragments
 
-    // S = Q K^T over the stage's kWgBK keys (one wgmma chain, not waited).
+    // S = Q K^T over the stage's BK keys (one wgmma chain, not waited).
     auto issue_qk = [&](int s) {
       const uint64_t qd = opaque(smem_desc(qw, 0, 1024));
       const uint64_t kd = opaque(smem_desc(ks + s * S::kKV, 0, 1024));
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < HDP / 16; ++kk) {
         const int col = (kk % 4) * 32;  // bytes into the 128-byte row
         const uint64_t a = desc_add(qd, (kk / 4) * kWgBQ * 128 + col);
-        wgmma_ss_n96(sc, a, desc_add(kd, (kk / 4) * kWgBK * 128 + col), kk);
+        const uint64_t bd = desc_add(kd, (kk / 4) * BK * 128 + col);
+        if constexpr (BK == 96)
+          wgmma_ss_n96(sc, a, bd, kk);
+        else
+          wgmma_ss_n48(sc, a, bd, kk);
       }
       wgmma_commit();
     };
     // O += P V: key chunk c (16 keys) is score tiles 2c and 2c + 1, which
     // lie in registers as the A fragment of rows r0 and r0 + 8.  V is
-    // N-major: 128-byte rows of one key, column boxes kWgBK rows apart.
+    // N-major: 128-byte rows of one key, column boxes BK rows apart.
     auto issue_pv = [&](int s) {
-      const uint64_t vd =
-          opaque(smem_desc(vs + s * S::kKV, kWgBK * 128, 1024));
+      const uint64_t vd = opaque(smem_desc(vs + s * S::kKV, BK * 128, 1024));
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const uint64_t dv = desc_add(vd, c * 16 * 128);
-        if constexpr (HD == 64)
-          wgmma_rs_n64<1>(o, pf[c], dv, 1);
-        else
-          wgmma_rs_n128<1>(o, pf[c], dv, 1);
-      }
+      for (int c = 0; c < kChunks; ++c)
+        pv_chunk<HDP, BK>(o, pf[c], desc_add(vd, c * 16 * 128));
       wgmma_commit();
     };
     // Online softmax over tile kt's S (masked where it reaches past Lk or
     // the diagonal); leaves P = exp(S - m) in sc, returns alpha per row.
     auto softmax = [&](int kt, float (&alpha)[2]) {
-      const int k0 = kt * kWgBK;
-      const bool edge = k0 + kWgBK > Lk || (causal && k0 + kWgBK - 1 > wg_row0);
+      const int k0 = kt * BK;
+      const bool edge = k0 + BK > Lk || (causal && k0 + BK - 1 > wg_row0);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int j = 0; j < kWgBK / 8; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = sc[4 * j + e] * sl2;
@@ -470,7 +549,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
         m[i] = m_new;
       }
 #pragma unroll
-      for (int j = 0; j < kWgBK / 2; ++j) {
+      for (int j = 0; j < BK / 2; ++j) {
         sc[j] = exp2_approx(sc[j] - m[(j >> 1) & 1]);
         sum[(j >> 1) & 1] += sc[j];
       }
@@ -508,9 +587,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
     softmax(0, alpha);  // o is 0: alpha unused
     pack_p();
     for (int kt = 1; kt < n_kt; ++kt) {
-      const int s = kt % kStages, sp = (kt - 1) % kStages;
-      mbar_wait(k_full + s, (kt / kStages) & 1);
-      mbar_wait(v_full + sp, ((kt - 1) / kStages) & 1);
+      const int s = kt % KST, sp = (kt - 1) % KST;
+      mbar_wait(k_full + s, (kt / KST) & 1);
+      mbar_wait(v_full + sp, ((kt - 1) / KST) & 1);
       named_bar_sync(my_turn, 256);
       wgmma_fence();
       issue_qk(s);
@@ -524,11 +603,11 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
       retire_pv();
       if (lane == 0) mbar_arrive(v_empty + sp);
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < HDP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       pack_p();
     }
-    const int sl = (n_kt - 1) % kStages;
-    mbar_wait(v_full + sl, ((n_kt - 1) / kStages) & 1);
+    const int sl = (n_kt - 1) % KST;
+    mbar_wait(v_full + sl, ((n_kt - 1) / KST) & 1);
     named_bar_sync(my_turn, 256);
     wgmma_fence();
     issue_pv(sl);
@@ -543,63 +622,72 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
       if (r < 0) continue;
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
       __nv_bfloat16* orow =
-          out + ((size_t)b * Lq + r) * H * HD + (size_t)h * HD;
+          out + ((size_t)b * Lq + r) * H * hd + (size_t)h * hd;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-            pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+      for (int n = 0; n < HDP / 8; ++n)
+        if (n * 8 + 2 * t < hd)  // hd is a multiple of 8: whole pairs
+          *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
+              pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
     }
   }
 }
 
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Lq, int Lk, int H, float scale, int causal,
-               cudaStream_t stream) {
-  auto kernel = flash_attention_f32_kernel<HD>;
-  const size_t smem = smem_bytes<HD>();
+template <typename T, int HDP>
+int launch_core(const void* q, const void* k, const void* v, void* out,
+                int B, int Lq, int Lk, int H, int hd, float scale, int causal,
+                cudaStream_t stream) {
+  auto kernel = flash_attention_core_kernel<T, HDP>;
+  const size_t smem = core_smem_bytes<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const bool vec = hd * (int)sizeof(T) % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   const dim3 grid(H, B, (Lq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Lq, Lk, H,
-      scale, causal);
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), Lq, Lk, H, hd, scale,
+      causal, (int)vec);
   return (int)cudaGetLastError();
 }
 
 // Tensor map over a (B, L, H, hd) bf16 tensor: one head's rows, `rows` at
-// a time, in 64-column boxes.
-template <int HD>
-int head_map(CUtensorMap* map, const void* base, int B, int L, int H,
+// a time, in 64-column boxes (columns past hd arrive as zeros).
+int head_map(CUtensorMap* map, const void* base, int B, int L, int H, int hd,
              int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)L,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)L,
                               (cuuint64_t)B};
-  const cuuint64_t row = (cuuint64_t)H * HD * 2;
-  const cuuint64_t strides[3] = {HD * 2, row, row * L};
+  const cuuint64_t row = (cuuint64_t)H * hd * 2;
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, row, row * L};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   return hopper::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                                  base, dims, strides, box);
 }
 
-template <int HD>
+template <int HDP, int BK, int KST>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int Lq, int Lk, int H, float scale, int causal,
-                 cudaStream_t stream) {
+                 int B, int Lq, int Lk, int H, int hd, float scale,
+                 int causal, cudaStream_t stream) {
+  if (hd % 8 || (reinterpret_cast<uintptr_t>(q) |
+                 reinterpret_cast<uintptr_t>(k) |
+                 reinterpret_cast<uintptr_t>(v) |
+                 reinterpret_cast<uintptr_t>(out)) % 16)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
-  int err = head_map<HD>(&mq, q, B, Lq, H, kWgBQ);
-  if (!err) err = head_map<HD>(&mk, k, B, Lk, H, kWgBK);
-  if (!err) err = head_map<HD>(&mv, v, B, Lk, H, kWgBK);
+  int err = head_map(&mq, q, B, Lq, H, hd, kWgBQ);
+  if (!err) err = head_map(&mk, k, B, Lk, H, hd, BK);
+  if (!err) err = head_map(&mv, v, B, Lk, H, hd, BK);
   if (err) return err;
-  auto kernel = flash_attention_wgmma_kernel<HD>;
-  const size_t smem = WgLayout<HD>::kBytes;
+  auto kernel = flash_attention_wgmma_kernel<HDP, BK, KST>;
+  const size_t smem = WgLayout<HDP, BK, KST>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(H, B, (Lq + kWgBQ - 1) / kWgBQ);
   kernel<<<grid, kWgThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Lq, Lk, H, scale,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Lq, Lk, H, hd, scale,
       causal);
   return (int)cudaGetLastError();
 }
@@ -612,12 +700,34 @@ bool plan_matches(int q_tile, int k_tile, int stages, int threads,
          threads == want_threads && smem == (long long)want_smem;
 }
 
+template <typename T>
+int launch_core_any(const void* q, const void* k, const void* v, void* out,
+                    int B, int Lq, int Lk, int H, int hd, float scale,
+                    int causal, int q_tile, int k_tile, int stages,
+                    int threads, long long smem, cudaStream_t s) {
+  const int hdp = (hd + 63) / 64 * 64;
+#define FLASH_CORE(HDP)                                                     \
+  if (hdp == HDP)                                                           \
+    return plan_matches(q_tile, k_tile, stages, threads, smem, kBQ, kBK, 1, \
+                        kThreads, core_smem_bytes<HDP>())                   \
+               ? launch_core<T, HDP>(q, k, v, out, B, Lq, Lk, H, hd, scale, \
+                                     causal, s)                             \
+               : (int)cudaErrorInvalidValue;
+  FLASH_CORE(64)
+  FLASH_CORE(128)
+  FLASH_CORE(192)
+  FLASH_CORE(256)
+#undef FLASH_CORE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128.  body: 0 = CUDA cores
-// (float32), 1 = TMA + wgmma (bf16); q_tile, k_tile, stages, threads and
-// smem are the plan's, refused unless they are the body's.  Returns the
-// cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16; hd: 1..256.  body: 0 = CUDA cores
+// (float32, or bfloat16 that TMA cannot read), 1 = TMA + wgmma (bfloat16,
+// hd a multiple of 8, 16-byte-aligned tensors); q_tile, k_tile, stages,
+// threads and smem are the plan's, refused unless they are the body's for
+// hd padded to a multiple of 64.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int dtype,
                                       int B, int Lq, int Lk, int H, int hd,
@@ -626,24 +736,29 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int threads, long long smem,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || Lq < 1 || Lk < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && body == 0) {
-    if (hd == 64 && plan_matches(q_tile, k_tile, stages, threads, smem, kBQ,
-                                 kBK, 1, kThreads, smem_bytes<64>()))
-      return launch_f32<64>(q, k, v, out, B, Lq, Lk, H, scale, causal, s);
-    if (hd == 128 && plan_matches(q_tile, k_tile, stages, threads, smem, kBQ,
-                                  kBK, 1, kThreads, smem_bytes<128>()))
-      return launch_f32<128>(q, k, v, out, B, Lq, Lk, H, scale, causal, s);
-  }
-  if (dtype == 1 && body == 1) {
-    if (hd == 64 &&
-        plan_matches(q_tile, k_tile, stages, threads, smem, kWgBQ, kWgBK,
-                     kStages, kWgThreads, WgLayout<64>::kBytes))
-      return launch_wgmma<64>(q, k, v, out, B, Lq, Lk, H, scale, causal, s);
-    if (hd == 128 &&
-        plan_matches(q_tile, k_tile, stages, threads, smem, kWgBQ, kWgBK,
-                     kStages, kWgThreads, WgLayout<128>::kBytes))
-      return launch_wgmma<128>(q, k, v, out, B, Lq, Lk, H, scale, causal, s);
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || hd < 1 || hd > 256)
+    return (int)cudaErrorInvalidValue;
+  const int hdp = (hd + 63) / 64 * 64;
+  if (body == 0 && dtype == 0)
+    return launch_core_any<float>(q, k, v, out, B, Lq, Lk, H, hd, scale,
+                                  causal, q_tile, k_tile, stages, threads,
+                                  smem, s);
+  if (body == 0 && dtype == 1)
+    return launch_core_any<__nv_bfloat16>(q, k, v, out, B, Lq, Lk, H, hd,
+                                          scale, causal, q_tile, k_tile,
+                                          stages, threads, smem, s);
+  if (body == 1 && dtype == 1) {
+#define FLASH_WGMMA(HDP, BK, KST)                                           \
+  if (hdp == HDP && plan_matches(q_tile, k_tile, stages, threads, smem,     \
+                                 kWgBQ, BK, KST, kWgThreads,                \
+                                 WgLayout<HDP, BK, KST>::kBytes))           \
+    return launch_wgmma<HDP, BK, KST>(q, k, v, out, B, Lq, Lk, H, hd, scale, \
+                                      causal, s);
+    FLASH_WGMMA(64, 96, 3)
+    FLASH_WGMMA(128, 96, 3)
+    FLASH_WGMMA(192, 48, 3)
+    FLASH_WGMMA(256, 48, 3)
+#undef FLASH_WGMMA
   }
   return (int)cudaErrorInvalidValue;
 }

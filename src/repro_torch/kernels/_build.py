@@ -38,11 +38,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "hadamard_mux_launch": [_P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I,
-                            _P],
+                            _I, _I, _I, ctypes.c_longlong, _P],
     "index_embed_demux_launch": [_P] * 9 + [_I] * 11 + [_P],
     "decode_demux_launch": [_P] * 9 + [_I] * 12 + [_P],
-    "paged_decode_attention_launch": [_P] * 7 + [_I] * 9
-    + [ctypes.c_float, _I, _I, _I, _I, _I, ctypes.c_longlong, _P],
+    "paged_decode_attention_launch": [_P] * 7 + [_I] * 8
+    + [ctypes.c_float] + [_I] * 12 + [ctypes.c_longlong] * 2 + [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I]
     + [_I] * 5 + [ctypes.c_longlong, _P],
 }

@@ -227,10 +227,77 @@ def test_paged_kernel_split_merge_on_card(cuda, dtype, tol, case, kblock):
     assert bool(torch.isfinite(got).all())
 
 
+# (b, h, kvh, hd, pool, ps, mp, c, kblock): shapes past the kernel's
+# earlier limits -- 17 query rows (tmux-12l-768h at
+# prefill_chunk 17, two row groups), 64 (C 16 x n_rep 4), 256 (C 32 x
+# n_rep 8); head dims whose key row is not a power of two of 16-byte loads
+# (80 f32: 20 loads; 192 bf16: 24), f32 hd 256 (64 loads, two per lane),
+# hd 36 (72 bf16 bytes: the copy body); pages of 512 rows (several boxes
+# per page); kblock 16.
+PAGED_WIDE = [
+    (2, 12, 12, 64, 9, 16, 4, 17, 1),
+    (2, 16, 4, 64, 9, 16, 4, 16, 2),
+    (1, 64, 8, 128, 5, 16, 4, 32, 1),
+    (2, 4, 2, 36, 9, 16, 4, 3, 1),
+    (2, 4, 2, 80, 9, 16, 4, 1, 4),
+    (2, 8, 2, 192, 9, 16, 4, 2, 1),
+    (2, 4, 1, 256, 9, 16, 4, 1, 1),
+    (2, 4, 2, 64, 5, 512, 2, 2, 1),
+    (2, 12, 12, 64, 40, 16, 19, 1, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", PAGED_WIDE)
+def test_paged_kernel_takes_every_shape_on_card(cuda, dtype, tol, case):
+    *shape, kblock = case
+    args = _paged_case(cuda, dtype, *shape)
+    b, h, kvh, hd, _pool, ps, mp, c = shape
+    plan = paged_kernel.plan(b, c, h, kvh, hd, ps, mp, kblock, dtype)
+    assert plan.body == ("copy" if hd == 36 and dtype == torch.bfloat16
+                         else "tma")
+    scale = hd ** -0.5
+    f32 = [t.float() if t.is_floating_point() else t for t in args]
+    want = paged_ref.paged_attention(*f32, scale=scale, causal=True,
+                                     window=None)
+    _build.LAUNCHES.clear()
+    got = paged_kernel.paged_decode_attention(
+        *args, scale=scale, causal=True, kblock_pages=kblock).float()
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"paged_decode_attention": 1}
+    live = _live(args, causal=True, window=None)
+    err = ((got - want) * live).abs().max().item()
+    assert err <= tol * max(1.0, (want * live).abs().max().item())
+
+
+@pytest.mark.cuda
+def test_paged_kernel_copy_body_on_a_misaligned_pool(cuda):
+    """Pools that do not start on 16 bytes cannot be TMA maps: the plan
+    takes the copy body, which must agree with the plain version."""
+    args = _paged_case(cuda, torch.bfloat16, 2, 4, 2, 64, 9, 16, 4, 2)
+    for i in (1, 2):
+        buf = torch.empty(args[i].numel() + 1, dtype=args[i].dtype,
+                          device=cuda)
+        view = buf[1:].view(args[i].shape)
+        view.copy_(args[i])
+        args[i] = view
+    assert paged_kernel.plan(2, 2, 4, 2, 64, 16, 4, 1, torch.bfloat16,
+                             aligned=False).body == "copy"
+    f32 = [t.float() if t.is_floating_point() else t for t in args]
+    want = paged_ref.paged_attention(*f32, scale=0.125, causal=True)
+    got = paged_kernel.paged_decode_attention(*args, scale=0.125).float()
+    torch.cuda.synchronize()
+    live = _live(args, causal=True, window=None)
+    err = ((got - want) * live).abs().max().item()
+    assert err <= 1e-2 * max(1.0, (want * live).abs().max().item())
+
+
 @pytest.mark.cuda
 def test_paged_kernel_raises_on_what_it_does_not_take(cuda):
-    args = _paged_case(cuda, torch.bfloat16, 1, 2, 1, 20, 5, 4, 2, 1)
-    with pytest.raises(ValueError, match="head_dim 20"):
+    args = _paged_case(cuda, torch.bfloat16, 1, 2, 1, 272, 5, 4, 2, 1)
+    with pytest.raises(ValueError, match="head_dim 272"):
         paged_kernel.paged_decode_attention(*args, scale=1.0)
     args = _paged_case(cuda, torch.float32, 1, 2, 1, 64, 5, 4, 2, 1)
     args[3] = args[3].long()
@@ -282,8 +349,8 @@ def test_flash_kernel_scale_override_and_large_logits(cuda):
 
 @pytest.mark.cuda
 def test_flash_ops_raises_on_what_the_kernel_does_not_take(cuda):
-    q = torch.randn((1, 16, 2, 32), device=cuda)
-    with pytest.raises(ValueError, match="head_dim 32"):
+    q = torch.randn((1, 16, 2, 320), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 320"):
         flash_ops.flash_attention(q, q, q)
     q = torch.randn((1, 16, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float16"):
@@ -432,6 +499,58 @@ def test_flash_ignores_keys_past_lk_on_card(cuda, dtype, tol, causal):
     want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
                                      causal=causal)
     got = flash_kernel.flash_attention(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= tol * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("hd", [20, 32, 80, 96, 192, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_takes_every_head_dim_on_card(cuda, dtype, tol, hd, causal):
+    """Head dims beyond the earlier 64 and 128: bf16 multiples of 8 on the
+    wgmma body (zero-padded to 64-column boxes; 48-key tiles at 192 and
+    256), the rest and all f32 on the CUDA-core body; Lq 150 and Lk 200
+    are ragged against every tile."""
+    body = flash_kernel.plan(1, 150, 200, 2, hd, dtype).body
+    assert body == ("wgmma" if dtype == torch.bfloat16 and hd % 8 == 0
+                    else "cuda_cores")
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn((1, 150, 2, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((1, 200, 2, hd), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
+                                     causal=causal)
+    got = flash_kernel.flash_attention(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= tol * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,n,l,d,aligned", [
+    (8, 40, 1, 768, True),       # decode: 32 slots of 4 vectors
+    (2, 8, 1032, 2560, True),    # eval: streaming, one slot
+    (3, 5, 7, 200, True),        # ragged: 4 slots
+    (2, 3, 5, 96, False)])       # x off 16 bytes: one element per thread
+def test_mux_plans_match_plain_version_on_card(cuda, dtype, tol, b, n, l, d,
+                                               aligned):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((b, n, l, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((n, d), generator=g, device=cuda).to(dtype)
+    if not aligned:
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        x = view
+    plan = mux_kernel.plan(b, n, l, d, dtype, aligned)
+    assert (plan.vec == 1) == (not aligned)
+    want = mux_ref.hadamard_mux(x.float(), v.float())
+    got = mux_kernel.hadamard_mux(x, v).float()
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= tol * max(
         1.0, want.abs().max().item())

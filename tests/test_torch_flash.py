@@ -266,3 +266,50 @@ def test_attn_config_keyword_matches_reference():
         theirs = jcfg.attn_config(use_flash=use_flash)
         for f in dataclasses.fields(ours):
             assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+
+
+# ---------------------------------------------------------------------------
+# Head dims the CUDA kernel took no more than 64 and 128 of before
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("oracle", ["pallas_interpret", "jax_ref"])
+@pytest.mark.parametrize("hd", [32, 80, 192, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_flash_matches_reference_at_every_head_dim(oracle, hd, causal):
+    """f32, Lq 37 against Lk 45 (ragged against every tile): the plain
+    version, what the CPU runs for the kernel, against the Pallas kernel
+    in interpret mode and the reference's oracle, atol 1e-5."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv((1, 37, 2, hd), (1, 45, 2, hd),
+                                      "float32", seed=5)
+    if oracle == "pallas_interpret":
+        want = jax_kernel.flash_attention(jq, jk, jv, causal=causal,
+                                          interpret=True)
+    else:
+        want = jax_ref.flash_attention(jq, jk, jv, causal=causal)
+    got = flash_ops.flash_attention(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+def test_backbone_use_flash_at_head_dim_256_with_gqa(monkeypatch):
+    """A 2-layer causal backbone with 4 heads of 256 over 2 KV heads (the
+    gemma head width; d_model 64, so q/k/v project up), in both packages
+    on bridged weights: the port with ``use_flash`` against the reference
+    with its flash branch forced on (Pallas in interpret mode), logits
+    within 1e-4, one flash call per layer."""
+    jcfg, tcfg = configs("qwen", 2, mux={"use_kernel": True})
+    jcfg = dataclasses.replace(jcfg, head_dim=256)
+    tcfg = dataclasses.replace(tcfg, head_dim=256)
+    assert (tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim_) == (4, 2, 256)
+    params, plain_model = bridged(jcfg, tcfg)
+    model = type(plain_model)(tcfg, device="cpu", use_flash=True)
+    model.load_state_dict(plain_model.state_dict())
+    toks = tokens(tcfg, 2, 12)
+    _jax_with_flash(monkeypatch)
+    want = JaxBackbone.apply(params, jnp.asarray(toks), jcfg)
+    calls = _count_flash_calls(monkeypatch)
+    with torch.no_grad():
+        got = model(as_torch(toks))
+    assert len(calls) == tcfg.n_layers == 2
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               np.asarray(want["logits"]), atol=1e-4, rtol=0)

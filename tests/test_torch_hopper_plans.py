@@ -1,9 +1,10 @@
 """Launch plans of the port's Hopper kernels, checked on the CPU.
 
-The flash-attention, index-embed demux and decode demux kernels take
-their tiling from a pure function in Python (``repro_torch.kernels.
-{attention,demux}.kernel.plan`` and ``demux.kernel.decode_plan``): body,
-tiles, grid, ring stages and shared memory.  The kernels
+The flash-attention, index-embed demux, decode demux and Hadamard mux
+kernels take their tiling from a pure function in Python
+(``repro_torch.kernels.{attention,demux,multiplex}.kernel.plan`` and
+``demux.kernel.decode_plan``): body, tiles, grid, ring stages and shared
+memory.  The kernels
 themselves run only on a card (``tests/test_torch_cuda.py``); here the
 coverage, fit, alignment and body-selection logic is held to its rules:
 every output row or query row is written by exactly one block, a block's
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.kernels.attention import kernel as flash_kernel
 from repro_torch.kernels.demux import kernel as demux_kernel
+from repro_torch.kernels.multiplex import kernel as mux_kernel
 
 SMEM_LIMIT = 232_448
 BF16, F32 = torch.bfloat16, torch.float32
@@ -157,9 +159,44 @@ def test_flash_body_selection():
     assert plan.grid == (20, 2, 17)
 
 
+# Head dims beyond the earlier 64 and 128: 20 (not a multiple of 8), 32, 80,
+# 96 (zero-padded to 64 / 128 columns), 192 (nemotron-4-340b) and 256
+# (gemma); Lq ragged against both bodies' tiles.
+NEW_HEAD_DIMS = [20, 32, 80, 96, 192, 256]
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("hd", NEW_HEAD_DIMS)
+def test_flash_plan_takes_every_head_dim(hd, dtype):
+    """Every hd up to 256 plans: bf16 multiples of 8 on the wgmma body
+    (64-column boxes, the head padded to hdp; 96-key tiles to hdp 128,
+    48-key tiles past it, 3 stages), the rest and f32
+    on the CUDA-core body; every query row written once, shared memory
+    within the card's."""
+    plan = flash_kernel.plan(2, 1037, 1037, 8, hd, dtype)
+    assert plan.hdp == -(-hd // 64) * 64 and plan.hdp % 64 == 0
+    rows = [r for z in range(plan.grid[2])
+            for r in plan.query_rows(z, 1037)]
+    assert sorted(r for r in rows if r >= 0) == list(range(1037))
+    assert plan.smem_bytes <= SMEM_LIMIT
+    if dtype == BF16 and hd % 8 == 0:
+        assert plan.body == "wgmma" and plan.q_tile == 128
+        want = (96, 3) if plan.hdp <= 128 else (48, 3)
+        assert (plan.k_tile, plan.stages) == want
+        assert plan.smem_bytes == 1024 + 128 * plan.hdp * 2 \
+            + 2 * plan.stages * plan.k_tile * plan.hdp * 2 \
+            + (1 + 4 * plan.stages) * 8
+    else:
+        assert plan.body == "cuda_cores" and plan.q_tile == 64
+        assert plan.smem_bytes == (64 * (plan.hdp + 4) * 3 + 64 * 68) * 4
+    # tensors off 16 bytes cannot be TMA maps: the CUDA-core body
+    assert flash_kernel.plan(2, 1037, 1037, 8, hd, dtype,
+                             aligned=False).body == "cuda_cores"
+
+
 @pytest.mark.parametrize("hd,dtype,exc,match", [
-    (32, BF16, ValueError, "head_dim 32"),
-    (96, F32, ValueError, "head_dim 96"),
+    (0, BF16, ValueError, "head_dim 0"),
+    (300, F32, ValueError, "head_dim 300"),
     (64, torch.float16, TypeError, "float16")])
 def test_flash_wrapper_raises_on_what_no_body_takes(hd, dtype, exc, match):
     q = torch.zeros((1, 16, 2, hd), dtype=dtype)
@@ -167,6 +204,17 @@ def test_flash_wrapper_raises_on_what_no_body_takes(hd, dtype, exc, match):
         flash_kernel.flash_attention(q, q, q)
     with pytest.raises(exc, match=match):
         flash_kernel.plan(1, 16, 16, 2, hd, dtype)
+
+
+@pytest.mark.parametrize("hd,dtype,body", [
+    (32, BF16, "wgmma"), (96, F32, "cuda_cores")])
+def test_flash_plan_takes_what_it_refused(hd, dtype, body):
+    """The earlier refusals (bf16 hd 32, f32 hd 96) now plan, every query row
+    once."""
+    plan = flash_kernel.plan(1, 16, 16, 2, hd, dtype)
+    assert plan.body == body
+    rows = [r for z in range(plan.grid[2]) for r in plan.query_rows(z, 16)]
+    assert sorted(r for r in rows if r >= 0) == list(range(16))
 
 
 def test_demux_wrapper_raises_on_what_no_body_takes():
@@ -300,3 +348,66 @@ def test_decode_wrapper_raises_on_what_no_body_takes():
                       for s in ((16, 16), (16,), (8, 16), (8,)))
     with pytest.raises(TypeError, match="float16"):
         demux_kernel.decode_demux(h, p, w1, b1, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# The Hadamard mux
+# ---------------------------------------------------------------------------
+
+# (B, N, L, d): the decode step (tmux-12l-768h, L 1), the lock-step
+# prefill's L 104, the eval step (qwen1.5-4b, N 8), ragged shapes.
+MUX_SHAPES = [(8, 40, 1, 768), (8, 40, 104, 768), (2, 8, 1032, 2560),
+              (3, 5, 7, 200), (1, 1, 1, 8), (2, 3, 5, 96), (1, 64, 3, 24)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("shape", MUX_SHAPES)
+def test_mux_plan_covers_every_output_once(shape, dtype, aligned):
+    """Every output element belongs to exactly one block's vectors, every
+    instance to exactly one slot; a block is cv x slots threads (powers of
+    two, 64..256), slots <= min(N, 32), and the partials fit."""
+    b, n, l, d = shape
+    plan = mux_kernel.plan(b, n, l, d, dtype, aligned)
+    per = 16 // dtype.itemsize
+    assert plan.vec == (per if aligned and d % per == 0 else 1)
+    total = b * l * (d // plan.vec)
+    vecs = [f for blk in range(plan.blocks)
+            for f in plan.vectors(blk, total)]
+    assert vecs == list(range(total))
+    # vector f is elements [f * vec, f * vec + vec) of the flat (B·L, d)
+    # output: whole rows' worth, so every element once
+    assert d % plan.vec == 0 and total * plan.vec == b * l * d
+    inst = sorted(i for s in range(plan.slots)
+                  for i in plan.instances(s, n))
+    assert inst == list(range(n))
+    assert plan.threads == plan.cv * plan.slots
+    for x in (plan.cv, plan.slots, plan.threads):
+        assert x & (x - 1) == 0
+    assert 64 <= plan.threads <= 256 and plan.slots <= min(n, 32)
+    assert plan.smem == (plan.threads * plan.vec * 4 if plan.slots > 1
+                         else 0)
+
+
+def test_mux_plan_at_the_slices():
+    """The decode step: 32 slots of 4 vectors, 192 blocks of 128 threads
+    on a 132-SM card (the first version had 3 blocks); the eval step
+    streams, one slot per block of 256 vectors."""
+    plan = mux_kernel.plan(8, 40, 1, 768, BF16)
+    assert (plan.slots, plan.cv, plan.threads, plan.blocks) == (32, 4, 128,
+                                                                192)
+    plan = mux_kernel.plan(2, 8, 1032, 2560, BF16)
+    assert (plan.slots, plan.cv, plan.blocks) == (1, 256, 2580)
+    assert plan.smem == 0
+    # fewer SMs, fewer blocks wanted: 16 slots of 16 vectors
+    plan = mux_kernel.plan(8, 40, 1, 768, BF16, sms=16)
+    assert plan.blocks >= 16 and plan.slots <= 32
+
+
+@pytest.mark.parametrize("bad,exc", [(dict(dtype=torch.float16), TypeError),
+                                     (dict(n=0), ValueError),
+                                     (dict(d=0), ValueError)])
+def test_mux_plan_raises_on_what_it_does_not_take(bad, exc):
+    args = dict(b=2, n=3, l=4, d=64, dtype=BF16) | bad
+    with pytest.raises(exc):
+        mux_kernel.plan(**args)

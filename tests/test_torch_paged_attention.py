@@ -8,12 +8,15 @@ split, splits on K-block boundaries, shared memory within a block's) and a
 float64 model of its split-K merge, held against the plain version and
 the Pallas kernel in interpret mode at f32 atol 1e-5 on live rows.
 Inputs come from numpy with a seed."""
+import dataclasses
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import tiling as jax_tiling
 from repro.kernels.paged_attention import kernel as jax_paged_kernel
 from repro.kernels.paged_attention import ref as jax_paged_ref
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
@@ -187,29 +190,118 @@ PLAN_SHAPES = [(8, 1, 12, 12, 64, 16, 9), (8, 4, 12, 12, 64, 16, 9),
                (64, 1, 32, 8, 128, 16, 256), (2, 1, 4, 2, 64, 8, 1)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kblock", [1, 2, 4])
-@pytest.mark.parametrize("shape", PLAN_SHAPES)
-def test_paged_plan_covers_every_entry_once(shape, kblock, dtype):
+def check_plan_covers(plan, shape, kblock, dtype):
     """Every block-table entry is walked by exactly one split, each split's
-    run starts on a K-block boundary, no split is empty, S <= 8, and the
-    block's shared memory fits."""
+    run starts on a K-block boundary, no split is empty, S <= 8; every
+    query row is in exactly one row group of <= 16 rows (8 with two
+    vectors per lane), within the rows its instantiation holds; every row
+    of a page is in exactly one ring stage (a box of <= 256 rows); the lane
+    group holds the whole (16-byte padded) key row; the block's shared
+    memory fits."""
     b, c, h, kvh, hd, ps, mp = shape
-    ring = 3 * paged_kernel.stage_bytes(kblock, ps, hd,
-                                        dtype.itemsize)
-    if ring > paged_kernel.KBLOCK_STAGE_BUDGET:   # f32, hd 128, kblock 4
-        with pytest.raises(ValueError, match="kblock_pages to <="):
-            paged_kernel.plan(b, c, h, kvh, hd, ps, mp, kblock, dtype)
-        return
-    plan = paged_kernel.plan(b, c, h, kvh, hd, ps, mp, kblock, dtype)
-    assert 1 <= plan.splits <= 8 and plan.grid == (plan.splits, kvh, b)
+    assert 1 <= plan.splits <= 8
+    assert plan.grid == (plan.splits, kvh, b * plan.groups)
     assert plan.entries % kblock == 0
     runs = [plan.split_entries(s, mp) for s in range(plan.splits)]
     walked = [e for r in runs for e in r]
     assert sorted(walked) == list(range(mp)) and len(set(walked)) == mp
     assert all(len(r) > 0 and r.start % kblock == 0 for r in runs)
-    assert plan.smem <= SMEM_LIMIT and plan.stages >= 3
     assert plan.rows == c * (h // kvh)
+    rows = [r for g in range(plan.groups) for r in plan.group_range(g)]
+    assert rows == list(range(plan.rows))
+    assert all(0 < len(plan.group_range(g)) <= plan.group_rows
+               <= plan.reg_rows <= 16 // plan.vpl for g in range(plan.groups))
+    boxes = plan.boxes(ps)
+    assert [o for r in boxes for o in r] == list(range(ps))
+    assert all(len(r) <= plan.box_rows <= 256 for r in boxes)
+    vecs = -(-hd * dtype.itemsize // 16)
+    assert plan.lanes & (plan.lanes - 1) == 0 and plan.lanes <= 32
+    assert plan.lanes * plan.vpl >= vecs > plan.lanes * plan.vpl // 2
+    assert plan.smem <= SMEM_LIMIT and plan.stages >= 3
+    assert plan.smem == paged_kernel.smem_bytes(
+        plan.group_rows, hd, plan.box_rows, dtype.itemsize, plan.stages,
+        min(plan.entries, mp))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kblock", [1, 2, 4])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_paged_plan_covers_every_entry_once(shape, kblock, dtype):
+    """``check_plan_covers`` at the kernel's earlier shapes, f32 hd 128 at
+    kblock 4 included (its 3-stage ring of whole K-blocks overflowed PR
+    15's budget; a stage is now one page)."""
+    plan = paged_kernel.plan(*shape, kblock, dtype)
+    check_plan_covers(plan, shape, kblock, dtype)
+
+
+# (b, c, h, kvh, hd, ps, max_pages, kblock): query rows R = C * n_rep of
+# 17 (tmux-12l-768h at prefill_chunk 17), 64 (C 16 x n_rep 4), 256 (C 32 x
+# n_rep 8, jamba's grouping); head dims 36 (72 bf16 bytes: no TMA), 80,
+# 192 (nemotron-4-340b) and 256 (gemma); pages of 512 rows; kblock 16 at
+# the slice's width (it raised before) and at the reference's limit.
+WIDE_SHAPES = [(8, 17, 12, 12, 64, 16, 9, 16), (8, 16, 16, 4, 64, 16, 9, 1),
+               (4, 32, 64, 8, 128, 16, 16, 2), (2, 3, 4, 2, 36, 16, 8, 4),
+               (2, 2, 8, 2, 80, 16, 12, 1), (2, 1, 96, 8, 192, 16, 8, 1),
+               (2, 4, 8, 4, 256, 16, 8, 4), (2, 1, 4, 2, 64, 512, 8, 1),
+               (2, 2, 4, 2, 256, 512, 8, 1), (1, 1, 4, 4, 64, 16, 200, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WIDE_SHAPES)
+def test_paged_plan_takes_the_reference_shapes(case, dtype):
+    """Shapes the reference's kernel takes and the earlier plan refused."""
+    *shape, kblock = case
+    plan = paged_kernel.plan(*shape, kblock, dtype)
+    check_plan_covers(plan, shape, kblock, dtype)
+    hd, ps = shape[4], shape[5]
+    assert plan.body == ("tma" if hd * dtype.itemsize % 16 == 0 else "copy")
+    assert plan.vpl == (2 if hd * dtype.itemsize > 512 else 1)
+    if ps > 256:
+        assert len(plan.boxes(ps)) >= 2
+    # a misaligned pool takes the copy body, the same split and groups
+    other = paged_kernel.plan(*shape, kblock, dtype, aligned=False)
+    assert other.body == "copy" and other.splits == plan.splits
+    assert other.groups == plan.groups
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+@pytest.mark.parametrize("ps", [1, 8, 16, 64, 256, 512])
+def test_validate_kblock_accepts_what_the_reference_accepts(ps, hd,
+                                                            itemsize):
+    """The port's copy of ``repro.kernels.tiling.validate_kblock`` accepts
+    exactly the same kblock_pages, 1..64, at every page size, head dim and
+    itemsize of the grid."""
+    def accepts(fn, kb):
+        try:
+            fn(kb, ps, hd, itemsize=itemsize)
+        except ValueError:
+            return False
+        return True
+
+    ours = [accepts(paged_kernel.validate_kblock, kb) for kb in range(1, 65)]
+    theirs = [accepts(jax_tiling.validate_kblock, kb) for kb in range(1, 65)]
+    assert ours == theirs
+
+
+def test_config_takes_prefill_chunk_17_at_kblock_16():
+    """The served config of the chip run: tmux-12l-768h, paged, every
+    kernel on, prefill_chunk 17, kblock_pages 16 (the earlier check refused
+    kblock >= 10 at bf16 hd 64 ps 16)."""
+    from repro_torch.configs import base as torch_base
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("tmux-12l-768h")
+    serving = torch_base.ServingConfig(paged=True, page_size=16,
+                                       use_kernel=True, fuse_demux=True,
+                                       prefill_chunk=17, kblock_pages=16)
+    cfg = dataclasses.replace(cfg, serving=serving,
+                              mux=dataclasses.replace(cfg.mux,
+                                                      use_kernel=True))
+    assert cfg.serving.kblock_pages == 16
+    plan = paged_kernel.plan(8, 17, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim_, 16, 9, 16, cfg.compute_dtype)
+    assert (plan.rows, plan.groups, plan.splits) == (17, 2, 1)
 
 
 def test_paged_plan_at_the_slice():
@@ -227,12 +319,12 @@ def test_paged_plan_at_the_slice():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(hd=20), ValueError, "head_dim 20"),
-    (dict(hd=48), ValueError, "power of two"),      # 6 loads per row
-    (dict(c=5, h=16, kvh=4), ValueError, "prefill_chunk"),   # 20 rows
-    (dict(kblock=64), ValueError, "kblock_pages to <="),
     (dict(dtype=torch.float16), TypeError, "float16"),
-    (dict(h=6, kvh=4), ValueError, "do not group")])
+    (dict(h=6, kvh=4), ValueError, "do not group"),
+    (dict(hd=0), ValueError, "head_dim 0"),
+    (dict(hd=272), ValueError, "head_dim 272"),
+    (dict(kblock=0), ValueError, "kblock_pages must be >= 1"),
+    (dict(kblock=8192), ValueError, "kblock_pages to <=")])  # > 12 MiB
 def test_paged_plan_raises_on_what_the_kernel_does_not_take(kw, exc, match):
     args = dict(b=2, c=1, h=4, kvh=2, hd=64, ps=16, max_pages=8, kblock=1,
                 dtype=torch.bfloat16) | kw
@@ -240,22 +332,40 @@ def test_paged_plan_raises_on_what_the_kernel_does_not_take(kw, exc, match):
         paged_kernel.plan(**args)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(hd=20), dict(hd=48),              # 2.5 and 6 loads per key row
+    dict(c=5, h=16, kvh=4),                # 20 query rows
+    dict(kblock=64)])                      # a 64-page K-block
+def test_paged_plan_takes_what_it_refused(kw):
+    """The earlier refusals (not a power of two of 16-byte loads, more than 16
+    query rows, a K-block beyond its ring's budget) now plan, and the plan
+    covers every row and entry once."""
+    args = dict(b=2, c=1, h=4, kvh=2, hd=64, ps=16, max_pages=8, kblock=1,
+                dtype=torch.bfloat16) | kw
+    plan = paged_kernel.plan(**args)
+    shape = tuple(args[k] for k in ("b", "c", "h", "kvh", "hd", "ps",
+                                    "max_pages"))
+    check_plan_covers(plan, shape, args["kblock"], args["dtype"])
+
+
 def split_merge_model(q, k_pages, v_pages, pos_pages, bt, q_pos, *, scale,
                       causal, window, kblock, itemsize):
     """The CUDA kernel's algorithm in plain PyTorch (float64): per (slot,
-    KV head), each split of the plan walks its entries; key row `row` of a
-    K-block goes to the online-softmax stream of consumer warp (row // KPW)
-    % 4, lane group row % KPW (G = hd * itemsize / 16 lanes per row, KPW =
-    32 / G), in log2 space with NEG_INF = -1e30; unmapped entries are
-    neither read nor counted.  Streams merge by exp2(m - M) weights and
-    the output is acc / max(l, 1e-30)."""
+    KV head), each split of the plan walks its entries, each mapped page
+    in the plan's boxes (ring stages); key row `row` of a box goes to the
+    online-softmax stream of consumer warp (row // KPW) % 4, lane group
+    row % KPW (KPW = 32 / the plan's lanes per key row), in log2 space
+    with NEG_INF = -1e30; unmapped entries are neither read nor counted.
+    Row groups only partition the query rows, whose streams are
+    independent, so the model takes every row at once.  Streams merge by
+    exp2(m - M) weights and the output is acc / max(l, 1e-30)."""
     b, c, h, hd = q.shape
     kvh, ps, mp = k_pages.shape[2], k_pages.shape[1], bt.shape[1]
     n_rep, rows = h // kvh, c * (h // kvh)
     plan = paged_kernel.plan(b, c, h, kvh, hd, ps, mp, kblock,
                              torch.float32 if itemsize == 4
                              else torch.bfloat16)
-    kpw = 32 // (hd * itemsize // 16)
+    kpw = 32 // plan.lanes
     # q as (B, KVH, R, hd), row r = c * n_rep + rep, scaled into log2 space
     qs = (q.double().reshape(b, c, kvh, n_rep, hd).permute(0, 2, 1, 3, 4)
           .reshape(b, kvh, rows, hd) * scale * LOG2E)
@@ -266,32 +376,34 @@ def split_merge_model(q, k_pages, v_pages, pos_pages, bt, q_pos, *, scale,
     acc = torch.zeros((b, kvh, n_streams, rows, hd), dtype=torch.float64)
     for s in range(plan.splits):
         for e in plan.split_entries(s, mp):
-            j = (e - s * plan.entries) % kblock
             page = bt[:, e].long()                               # (B,)
             live = page >= 0
             pg = page.clamp(min=0)
-            for o in range(ps):
-                row = j * ps + o
-                sid = (s * 4 + (row // kpw) % 4) * kpw + row % kpw
-                kp = torch.where(live, pos_pages[pg, o].long(), -1)
-                kk = k_pages[pg, o].double()                     # (B,KVH,hd)
-                vv = v_pages[pg, o].double()
-                sc = torch.einsum("bhrd,bhd->bhr", qs, kk)
-                diff = qp - kp[:, None]                          # (B, R)
-                keep = (kp[:, None] >= 0) & (diff >= 0 if causal else True)
-                if window is not None:
-                    keep = keep & (diff < window)
-                sc = torch.where(keep[:, None, :], sc, NEG_INF)
-                m_old = m[:, :, sid]
-                m_new = torch.maximum(m_old, sc)
-                alpha, p = torch.exp2(m_old - m_new), torch.exp2(sc - m_new)
-                upd = live[:, None, None]
-                lsum[:, :, sid] = torch.where(
-                    upd, lsum[:, :, sid] * alpha + p, lsum[:, :, sid])
-                acc[:, :, sid] = torch.where(
-                    upd[..., None], acc[:, :, sid] * alpha[..., None]
-                    + p[..., None] * vv[:, :, None, :], acc[:, :, sid])
-                m[:, :, sid] = torch.where(upd, m_new, m_old)
+            for box in plan.boxes(ps):
+                for o in box:
+                    row = o - box.start
+                    sid = (s * 4 + (row // kpw) % 4) * kpw + row % kpw
+                    kp = torch.where(live, pos_pages[pg, o].long(), -1)
+                    kk = k_pages[pg, o].double()         # (B, KVH, hd)
+                    vv = v_pages[pg, o].double()
+                    sc = torch.einsum("bhrd,bhd->bhr", qs, kk)
+                    diff = qp - kp[:, None]              # (B, R)
+                    keep = (kp[:, None] >= 0) & (diff >= 0 if causal
+                                                 else True)
+                    if window is not None:
+                        keep = keep & (diff < window)
+                    sc = torch.where(keep[:, None, :], sc, NEG_INF)
+                    m_old = m[:, :, sid]
+                    m_new = torch.maximum(m_old, sc)
+                    alpha = torch.exp2(m_old - m_new)
+                    p = torch.exp2(sc - m_new)
+                    upd = live[:, None, None]
+                    lsum[:, :, sid] = torch.where(
+                        upd, lsum[:, :, sid] * alpha + p, lsum[:, :, sid])
+                    acc[:, :, sid] = torch.where(
+                        upd[..., None], acc[:, :, sid] * alpha[..., None]
+                        + p[..., None] * vv[:, :, None, :], acc[:, :, sid])
+                    m[:, :, sid] = torch.where(upd, m_new, m_old)
     mx = m.amax(dim=2, keepdim=True)
     w = torch.exp2(m - mx)
     o = (w[..., None] * acc).sum(2) / (w * lsum).sum(2).clamp(
@@ -380,3 +492,49 @@ def test_split_merge_model_matches_pallas_interpret(case_idx):
     _close_live(got.float().numpy(), np.asarray(want),
                 live_rows(arrays, causal=causal, window=window),
                 TOL["float32"])
+
+
+# (b, h, kvh, hd, pool, ps, mp, c, kblock) the port's kernel refused
+# before: 20 query rows (C 5 x n_rep 4), 64 (C 16 x n_rep 4), kblock 8 at
+# hd 128 ps 16 (f32: past the earlier ring budget), head dims 80, 192, 256.
+NEW_SHAPES = [
+    (2, 16, 4, 32, 9, 8, 4, 5, 1),
+    (1, 16, 4, 32, 9, 8, 4, 16, 2),
+    (2, 4, 2, 128, 9, 16, 4, 1, 8),
+    (2, 4, 2, 80, 9, 8, 4, 2, 1),
+    (2, 8, 2, 192, 7, 4, 3, 1, 1),
+    (2, 4, 1, 256, 7, 4, 3, 2, 1),
+]
+
+
+@pytest.mark.parametrize("case", NEW_SHAPES)
+def test_plain_paged_matches_pallas_at_new_shapes(case):
+    """The port's op (its plain version on a CPU tensor) against the TPU
+    kernel in interpret mode, f32, live rows."""
+    *shape, kblock = case
+    arrays = paged_case(*shape, seed=3)
+    jax_args, torch_args = _both(arrays, "float32")
+    hd = shape[3]
+    want = jax_paged_kernel.paged_decode_attention(
+        *jax_args, scale=hd ** -0.5, causal=True, window=None,
+        kblock_pages=kblock, interpret=True)
+    got = ops.paged_attention(*torch_args, scale=hd ** -0.5, causal=True,
+                              use_kernel=True, kblock_pages=kblock)
+    _close_live(got.numpy(), np.asarray(want),
+                live_rows(arrays, causal=True, window=None), TOL["float32"])
+
+
+@pytest.mark.parametrize("case", NEW_SHAPES)
+def test_split_merge_model_at_new_shapes(case):
+    """The kernel's streams and merge at the new shapes (row groups, lane
+    groups padded past the key row, two vectors per lane at f32 hd 256)
+    against the plain version."""
+    b, h, kvh, hd, pool, ps, mp, c, kblock = case
+    arrays = paged_case(b, h, kvh, hd, pool, ps, mp, c, seed=4)
+    t = [torch.from_numpy(a) for a in arrays]
+    got = split_merge_model(*t, scale=hd ** -0.5, causal=True, window=None,
+                            kblock=kblock, itemsize=4)
+    want = ref.paged_attention(*t, scale=hd ** -0.5, causal=True)
+    assert bool(torch.isfinite(got).all())
+    _close_live(got.float().numpy(), want.numpy(),
+                live_rows(arrays, causal=True, window=None), TOL["float32"])

@@ -221,13 +221,17 @@ def test_allocator_reset_is_slot_isolated(paged):
 
 
 def test_kblock_config_validation_fails_fast():
-    """A K+V stage over the kernel's shared-memory budget raises at config
-    construction, naming the limit and the knob to turn."""
+    """A K-block over the reference's budget (its 12 MiB of VMEM) raises at
+    config construction, naming the limit and the knob to turn; every
+    K-block the reference takes constructs (64 pages here, which the
+    kernel's earlier shared-memory ring refused)."""
     with pytest.raises(ValueError, match="kblock_pages must be >= 1"):
         ServingConfig(kblock_pages=0)
-    with pytest.raises(ValueError, match=r"budget .* bytes.*lower "
+    with pytest.raises(ValueError, match=r"budget .* MiB.*lower "
                                          r"kblock_pages to <="):
-        _model(paged=True, page_size=16, use_kernel=True, kblock_pages=64)
+        _model(paged=True, page_size=16, use_kernel=True,
+               kblock_pages=1 << 13)
+    _model(paged=True, page_size=16, use_kernel=True, kblock_pages=64)
     _model(paged=True, page_size=16, use_kernel=True, kblock_pages=8)
     # kernel off -> the knob is inert, any value constructs
     _model(paged=True, page_size=16, kblock_pages=1 << 16)

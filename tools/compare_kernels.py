@@ -1,28 +1,36 @@
 #!/usr/bin/env python3
-"""Times this checkout's bf16 decode demux and paged decode attention
-beside an earlier version of the same two kernels, on one card, in turns
-(earlier, this, this, earlier), on the same inputs.
+"""Times this checkout's bf16 Hadamard mux, paged decode attention and
+flash attention beside an earlier version of the same three kernels, on
+one card, in turns (earlier, this, this, earlier), on the same inputs.
 
-    git show <commit>:src/repro_torch/csrc/decode_demux.cu > DIR/...
-    (likewise demux_tile.cuh and paged_decode_attention.cu)
+    git show <commit>:src/repro_torch/csrc/hadamard_mux.cu > DIR/...
+    (likewise paged_decode_attention.cu, flash_attention.cu, hopper.cuh)
     python3 tools/compare_kernels.py DIR
 
-DIR holds the earlier sources.  Their C entry points are the ones they had
-before the launch plans of these two kernels moved to Python:
+DIR holds the earlier sources; they are built with their own
+``hopper.cuh``.  Their C entry points are the ones they had before this
+checkout's launch plans for the mux and the paged kernel:
 
-    decode_demux_launch(h, p, w1, b1, w2, b2, out, dtype, B, C, N, d, H,
-                        stream)
+    hadamard_mux_launch(x, v, out, dtype, B, N, L, d, stream)
     paged_decode_attention_launch(q, k_pages, v_pages, pos_pages,
-                                  block_table, q_pos, out, dtype, B, C, H,
-                                  KVH, hd, ps, max_pages, kblock, scale,
-                                  causal, window, stream)
+        block_table, q_pos, out, dtype, B, C, H, KVH, hd, ps, max_pages,
+        kblock, scale, causal, window, splits, entries, stages, P, stream)
+    flash_attention_launch(q, k, v, out, dtype, B, Lq, Lk, H, hd, scale,
+        causal, body, q_tile, k_tile, stages, threads, smem, stream)
 
-Shapes: the decode demux at the serving slices' B 8 N 40 d 768 H 1536
-(C 1 and C 4) and a ragged B 3 N 3 C 3 d 96 H 160; the paged attention at
-chip_smoke.py's slice (C 1 at kblock 1, 2, 4; C 4), long-context (64 pages
-per slot) and all-unmapped-split layouts.  Each time is chip_smoke.py's
-``time_ms``; the two versions' outputs must agree within the bf16
-tolerance (the paged kernel's on live query rows).
+(the paged kernel's splits and entries as this checkout's plan makes them
+for a single row group, its ring 4 K-block stages, as its own plan chose
+at these shapes; the flash kernel's plan is this checkout's at hd 64 and
+128, which the earlier source was built for).
+
+Shapes: the mux at the decode shape (B 8, N 40, L 1, d 768), the
+lock-step prefill's L 104 and the eval shape (B 2, N 8, L 1032, d 2560);
+the paged attention at chip_smoke.py's slice (C 1 at kblock 1, 2, 4; C 4),
+long-context (64 pages per slot) and all-unmapped-split layouts; flash
+attention at the eval slice (B 2, L 1032, H 20, hd 128, causal and not)
+and at L 8192.  Each time is chip_smoke.py's ``time_ms``; the two
+versions' outputs must agree within the bf16 tolerance (the paged
+kernel's on live query rows).
 """
 from __future__ import annotations
 
@@ -35,24 +43,29 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+SOURCES = ("hadamard_mux.cu", "paged_decode_attention.cu",
+           "flash_attention.cu")
 
 
 def load_earlier(directory: Path, build) -> ctypes.CDLL:
-    objs = []
-    for name in ("decode_demux.cu", "paged_decode_attention.cu"):
-        obj = directory / (name + ".o")
-        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-c",
-                        str(directory / name), "-o", str(obj)], check=True)
-        objs.append(str(obj))
+    objs = [directory / (name + ".o") for name in SOURCES]
+    procs = [subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-c",
+                               str(directory / name), "-o", str(obj)])
+             for name, obj in zip(SOURCES, objs)]
+    if any(p.wait() for p in procs):
+        raise SystemExit("[compare] FAIL: the earlier sources do not build")
     lib = directory / "libearlier.so"
-    subprocess.run([build._nvcc(), "-shared", *objs, "-o", str(lib)],
-                   check=True)
+    subprocess.run([build._nvcc(), "-shared", *map(str, objs), "-o",
+                    str(lib)], check=True)
     dll = ctypes.CDLL(str(lib))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    dll.decode_demux_launch.argtypes = [P] * 7 + [I] * 6 + [P]
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dll.hadamard_mux_launch.argtypes = [P, P, P, I, LL, I, I, I, P]
     dll.paged_decode_attention_launch.argtypes = [P] * 7 + [I] * 9 + [
-        ctypes.c_float, I, I, P]
-    for fn in (dll.decode_demux_launch, dll.paged_decode_attention_launch):
+        ctypes.c_float, I, I, I, I, I, LL, P]
+    dll.flash_attention_launch.argtypes = [P] * 4 + [I] * 6 + [
+        ctypes.c_float, I] + [I] * 5 + [LL, P]
+    for fn in (dll.hadamard_mux_launch, dll.paged_decode_attention_launch,
+               dll.flash_attention_launch):
         fn.restype = I
     return dll
 
@@ -60,8 +73,8 @@ def load_earlier(directory: Path, build) -> ctypes.CDLL:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("earlier", type=Path, help="directory of the earlier "
-                    "decode_demux.cu, demux_tile.cuh, "
-                    "paged_decode_attention.cu")
+                    "hadamard_mux.cu, paged_decode_attention.cu, "
+                    "flash_attention.cu and hopper.cuh")
     args = ap.parse_args(argv)
 
     import torch
@@ -70,7 +83,8 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.demux import kernel as demux_kernel
+    from repro_torch.kernels.attention import kernel as flash_kernel
+    from repro_torch.kernels.multiplex import kernel as mux_kernel
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -86,41 +100,52 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
 
-    def demux_earlier(h, p, w1, b1, w2, b2):
-        b, rows, d = h.shape
-        n, hidden = p.shape[1], w1.shape[0]
-        out = torch.empty((b, n, rows, d), dtype=h.dtype, device=h.device)
-        err = earlier.decode_demux_launch(
-            h.data_ptr(), p.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), 1, b, rows, n, d,
-            hidden, stream(h))
-        _build.raise_on_error("earlier decode_demux", err)
+    def mux_earlier(x, v):
+        b, n, l, d = x.shape
+        out = torch.empty((b, l, d), dtype=x.dtype, device=x.device)
+        err = earlier.hadamard_mux_launch(
+            x.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b, n, l, d,
+            stream(x))
+        _build.raise_on_error("earlier hadamard_mux", err)
         return out
 
     def paged_earlier(q, k, v, pos, bt, q_pos, causal, kb):
         out = torch.empty_like(q)
         b, c, h, hd = q.shape
+        pl = paged_kernel.plan(b, c, h, k.shape[2], hd, k.shape[1],
+                               bt.shape[1], kb, bf16)
+        assert pl.groups == 1
         err = earlier.paged_decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
             bt.data_ptr(), q_pos.data_ptr(), out.data_ptr(), 1, b, c, h,
             k.shape[2], hd, k.shape[1], bt.shape[1], kb, hd ** -0.5,
-            int(causal), -1, stream(q))
+            int(causal), -1, pl.splits, pl.entries, 4, k.shape[0],
+            stream(q))
         _build.raise_on_error("earlier paged_decode_attention", err)
         return out
 
+    def flash_earlier(q, k, v, causal):
+        b, lq, h, hd = q.shape
+        p = flash_kernel.plan(b, lq, k.shape[1], h, hd, bf16)
+        out = torch.empty_like(q)
+        err = earlier.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b,
+            lq, k.shape[1], h, hd, hd ** -0.5, int(causal),
+            flash_kernel.BODIES[p.body], p.q_tile, p.k_tile, p.stages,
+            p.threads, p.smem_bytes, stream(q))
+        _build.raise_on_error("earlier flash_attention", err)
+        return out
+
     cases = []   # (label, earlier fn, this fn, live rows or None)
-    for b, n, c, d, hid in ((8, 40, 1, 768, 1536), (8, 40, 4, 768, 1536),
-                            (3, 3, 3, 96, 160)):
-        ops = [torch.randn(s, generator=gen, device="cuda") * sc for s, sc in
-               (((b, c, d), 1.0), ((b, n, d), 1.0),
-                ((hid, 2 * d), (2 * d) ** -0.5), ((hid,), 0.1),
-                ((d, hid), hid ** -0.5), ((d,), 0.1))]
-        ops = [t.to(bf16) for t in ops]
-        body = demux_kernel.decode_plan(b, c, n, d, hid, bf16).body
-        cases.append((f"decode_demux B{b} N{n} C{c} d{d} H{hid} "
-                      f"(body {body})",
-                      lambda ops=ops: demux_earlier(*ops),
-                      lambda ops=ops: demux_kernel.decode_demux(*ops), None))
+    for b, n, l, d in ((8, 40, 1, 768), (8, 40, 104, 768),
+                       (2, 8, 1032, 2560)):
+        x = torch.randn((b, n, l, d), generator=gen, device="cuda").to(bf16)
+        v = torch.randn((n, d), generator=gen, device="cuda").to(bf16)
+        pl = mux_kernel.plan(b, n, l, d, bf16)
+        cases.append((f"hadamard_mux B{b} N{n} L{l} d{d} (slots {pl.slots}, "
+                      f"{pl.blocks} blocks of {pl.threads})",
+                      lambda x=x, v=v: mux_earlier(x, v),
+                      lambda x=x, v=v: mux_kernel.hadamard_mux(x, v), None))
     g = torch.Generator().manual_seed(0)
     tmux_lengths = torch.randint(120, 138, (8,), generator=g).tolist()
     slice_kw = dict(b=8, h=12, kvh=12, hd=64, ps=16)
@@ -146,6 +171,14 @@ def main(argv=None) -> int:
                 lambda a=a, c=causal, kb=kb:
                 paged_kernel.paged_decode_attention(
                     *a, scale=0.125, causal=c, kblock_pages=kb), live))
+    for b, l, causal in ((2, 1032, True), (2, 1032, False), (1, 8192, True)):
+        q, k, v = (torch.randn((b, l, 20, 128), generator=gen,
+                               device="cuda").to(bf16) for _ in range(3))
+        cases.append((f"flash_attention B{b} L{l} H20 hd128 causal {causal}",
+                      lambda q=q, k=k, v=v, c=causal:
+                      flash_earlier(q, k, v, c),
+                      lambda q=q, k=k, v=v, c=causal:
+                      flash_kernel.flash_attention(q, k, v, causal=c), None))
 
     with torch.no_grad():
         for label, old, new, live in cases:
