@@ -50,7 +50,27 @@ Phases, any failure of which ends the run with a non-zero exit:
      must give batch 0's logits within LOGIT_TOL and every batch's task and
      retrieval losses within EVAL_LOSS_TOL (the same retrieval index fed
      to both); then eval-step times kernels on and off in turns and a
-     profile of one step.
+     profile of one step;
+  6. the replica router: the paged slice's model and trace through
+     ``ReplicaRouter`` (batch 8 per replica, each with its own page pool,
+     the mux, fused decode-demux and paged kernels on): an R = 1
+     round-robin router must give the bare scheduler's tokens, decode
+     steps and TTFTs; R = 2 least_loaded with the kernels must give the
+     plain path's router and decode steps, tokens, dispatch and requeues,
+     and teacher-forced logits within LOGIT_TOL (greedy tokens equal where
+     the margin is clear), counting the kernels' launches; the second
+     replica may add to ``torch.cuda.memory_allocated`` no more than its own
+     cache, pool and primed prefix (+5%): the weights are held once;
+  7. the training half: ``Trainer.make_train_step`` on ``tmux-12l-768h``
+     at full width, bf16, the retrieval task (8 groups x 40 x 128
+     tokens, lr 3e-3, warm-up 1), 10 steps with finite loss and grad norm,
+     their times and peak memory, a profile of one step and of the
+     optimizer update alone; a 2-layer, d 256 f32 config trained 3 steps
+     on the card and on the CPU (losses within 1e-4 relative, first
+     grads within 1e-4 x max|g|); the trained weights evaluated through a
+     ``Backbone.with_config`` view with the mux and demux kernels against
+     the plain path (losses within EVAL_LOSS_TOL, launches counted); and
+     ``make_train_step`` refusing a kernel-on config.
 
 It prints one JSON line of per-kernel numbers, then the card's
 ``nvidia-smi`` name and power limit, and last a JSON line with the device.
@@ -1079,6 +1099,410 @@ def profile_decode(torch, eng, prompts, first, label: str, wall: float,
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the replica router
+# ---------------------------------------------------------------------------
+
+def held_bytes(obj) -> int:
+    """Bytes of the device tensors reachable from ``obj`` (a scheduler: its
+    engine, width classes, allocators, cache or page pool, primed prefix),
+    each storage once, not counting any ``nn.Module``'s weights."""
+    import torch
+    from torch import nn
+
+    seen, storages, stack = set(), {}, [obj]
+    while stack:
+        o = stack.pop()
+        if id(o) in seen or isinstance(o, (nn.Module, str, bytes, type)):
+            continue
+        seen.add(id(o))
+        if torch.is_tensor(o):
+            if o.is_cuda:
+                st = o.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+        elif isinstance(o, dict):
+            stack.extend(o.values())
+        elif isinstance(o, (list, tuple, set)):
+            stack.extend(o)
+        elif hasattr(o, "__dict__"):
+            stack.extend(vars(o).values())
+    return sum(storages.values())
+
+
+def run_router(torch, seed: int):
+    """The replica router over the paged slice's model and trace: (a) R = 1
+    round-robin against the bare scheduler, kernels on, bitwise; (b) R = 2
+    least_loaded, kernels on against the plain path; (c) the weights held
+    once."""
+    import gc
+
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import Backbone
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.router import ReplicaRouter
+    from repro_torch.serving.scheduler import (ContinuousScheduler,
+                                               poisson_trace)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch, n_requests, rate, prompt_len, gen_len = 8, 160, 8.0, 16, 16
+    max_total = prompt_len * 2 + gen_len * 4 + 1
+    base = get_config("tmux-12l-768h")
+    paged = ServingConfig(paged=True, page_size=16, use_kernel=True,
+                          fuse_demux=True)
+    cfg = dataclasses.replace(
+        base, mux=dataclasses.replace(base.mux, use_kernel=True),
+        serving=paged)
+    plain_cfg = dataclasses.replace(base, serving=ServingConfig(
+        paged=True, page_size=16))
+    print(f"[router] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"N={cfg.mux.n}, {cfg.dtype}, batch {batch} per replica, "
+          f"page_size 16, mux + fused decode demux + paged kernels; "
+          f"poisson_trace({n_requests}, rate={rate}, prompt_len="
+          f"{prompt_len}, gen_len={gen_len}, max_total={max_total})")
+    model = Backbone(cfg, seed=seed, device="cuda").eval()
+    trace = poisson_trace(n_requests, rate=rate, prompt_len=prompt_len,
+                          gen_len=gen_len, vocab=cfg.vocab,
+                          max_total=max_total, seed=seed)
+
+    def build(m, replicas, policy):
+        return ReplicaRouter.build(m, batch=batch, max_len=max_total,
+                                   replicas=replicas, policy=policy)
+
+    build(model, 2, "least_loaded").run([r.fresh() for r in trace[:16]])
+    torch.cuda.synchronize()
+
+    # (a) R = 1 round-robin is the bare scheduler, bitwise, kernels on
+    bare = ContinuousScheduler(Engine(model, batch=batch, max_len=max_total))
+    bstats = bare.run([r.fresh() for r in trace])
+    one = build(model, 1, "round_robin")
+    ostats = one.run([r.fresh() for r in trace])
+    same = ({q.rid: (q.output, q.ttft) for q in one.finished}
+            == {q.rid: (q.output, q.ttft) for q in bare.finished})
+    print(f"[router] (a) R=1 round_robin vs the bare scheduler, kernels on: "
+          f"decode steps {ostats.decode_steps} / {bstats.decode_steps}, "
+          f"tokens {ostats.generated_tokens} / {bstats.generated_tokens}, "
+          f"every token and TTFT identical: {same}")
+    if not (same and ostats.decode_steps == bstats.decode_steps
+            and ostats.finished == n_requests):
+        raise SystemExit("[router] FAIL: the R=1 router is not the bare "
+                         "scheduler")
+    del bare, one
+    gc.collect()
+
+    # (b) R = 2 least_loaded, kernels on against the plain path
+    plain_model = Backbone(plain_cfg, seed=seed, device="cuda").eval()
+    plain_model.load_state_dict(model.state_dict())
+    runs = {}
+    for label, m in (("kernels", model), ("plain", plain_model)):
+        router = build(m, 2, "least_loaded")
+        forced = [[] for _ in router.replicas]
+        for sched, keep in zip(router.replicas, forced):
+            record_teacher_forced(sched, keep)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        stats = router.run([r.fresh() for r in trace])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[label] = (router, stats, forced, dict(_build.LAUNCHES), dt)
+    router, stats, forced, launches, dt = runs["kernels"]
+    _, pstats, pforced, plaunch, pdt = runs["plain"]
+    print(f"[router] (b) R=2 least_loaded: {stats.finished}/{n_requests} "
+          f"requests, {stats.router_steps} router steps, "
+          f"{stats.decode_steps} decode steps, {stats.generated_tokens} "
+          f"tokens in {dt:.4f} s = {stats.generated_tokens / dt:.1f} tok/s, "
+          f"{dt / stats.router_steps * 1e3:.3f} ms per router step (bf16, "
+          f"{torch.cuda.get_device_name(0)}); plain path {pdt:.4f} s = "
+          f"{pstats.generated_tokens / pdt:.1f} tok/s, "
+          f"{pdt / pstats.router_steps * 1e3:.3f} ms per router step")
+    for i, rep in enumerate(stats.per_replica):
+        load = rep["load"]
+        print(f"[router]   replica {i}: {rep['dispatched']} dispatched, "
+              f"{rep['finished']} finished, {rep['decode_steps']} decode "
+              f"steps, {rep['idle_steps']} idle, lane use (mean occupancy) "
+              f"{rep['mean_occupancy']:.3f}, peak {rep['peak_pages']}/"
+              f"{load['usable_pages']} pages")
+    print(f"[router] kernel launches in that run: {launches}; plain path "
+          f"{plaunch}")
+    if stats.finished != n_requests or plaunch:
+        raise SystemExit("[router] FAIL: the R=2 runs")
+    if launches.get("paged_decode_attention") != \
+            cfg.n_layers * stats.decode_steps or not (
+                launches.get("hadamard_mux") and launches.get("decode_demux")):
+        raise SystemExit(f"[router] FAIL: launches {launches}")
+    for what in ("router_steps", "decode_steps", "generated_tokens",
+                 "dispatched", "requeues"):
+        a, b = getattr(stats, what), getattr(pstats, what)
+        print(f"[router] {what}: kernels {a}, plain {b}")
+        if a != b:
+            raise SystemExit(f"[router] FAIL: {what} differ")
+    for i, (got_steps, ref_steps) in enumerate(zip(forced, pforced)):
+        if not got_steps or len(got_steps) != len(ref_steps):
+            raise SystemExit(f"[router] FAIL: replica {i} teacher-forced "
+                             f"steps {len(got_steps)} vs {len(ref_steps)}")
+        worst, clear_n, equal_n, live_n, agree_n = 0.0, 0, 0, 0, 0
+        for got, ref in zip(got_steps, ref_steps):
+            err = (got - ref).abs().max().item()
+            tol = LOGIT_TOL * ref.abs().max().item()
+            top2 = ref.topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+            same_tok = got.argmax(-1) == ref.argmax(-1)
+            live = ref.abs().amax(-1) > 0
+            worst = max(worst, err / tol)
+            clear_n += int(clear.sum())
+            equal_n += int(same_tok[clear].sum())
+            live_n += int(live.sum())
+            agree_n += int(same_tok[live].sum())
+            if not (err <= tol and bool(torch.isfinite(got).all())
+                    and bool(same_tok[clear].all())):
+                raise SystemExit(f"[router] FAIL: replica {i} logits "
+                                 f"disagree with the plain path")
+        print(f"[router] replica {i}: {len(got_steps)} teacher-forced steps, "
+              f"logits within {worst:.3f} of LOGIT_TOL, greedy tokens equal "
+              f"on {equal_n} of {clear_n} lanes with a clear margin and "
+              f"agree on {agree_n} of {live_n} live lanes")
+    del runs, router, plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the weights are held once: a second replica adds its own cache,
+    # pool and primed prefix, not another copy of the weights
+    grown = {}
+    for r in (1, 2):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        router = build(model, r, "least_loaded")
+        torch.cuda.synchronize()
+        grown[r] = (torch.cuda.memory_allocated() - before,
+                    held_bytes(router.replicas[-1]))
+        del router
+        gc.collect()
+    second = grown[2][0] - grown[1][0]
+    own = grown[2][1]
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[router] (c) memory_allocated: R=1 +{grown[1][0] / 1e6:.2f} MB, "
+          f"R=2 +{grown[2][0] / 1e6:.2f} MB; the second replica adds "
+          f"{second / 1e6:.2f} MB against its own cache, pool and prefix "
+          f"{own / 1e6:.2f} MB (weights {weights / 1e6:.1f} MB, held once)")
+    if not second <= 1.05 * own:
+        raise SystemExit("[router] FAIL: the second replica holds more than "
+                         "its own cache and pool")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the training half
+# ---------------------------------------------------------------------------
+
+def run_train(torch, seed: int):
+    """``Trainer.make_train_step`` on tmux-12l-768h at full width, bf16, the
+    retrieval warm-up task: (a) finite loss and grad norm at every step;
+    (b) an f32 config's steps on the card against the CPU; (c) the trained
+    weights evaluated through the mux and demux kernels against the plain
+    path; (d) a kernel-on config refused."""
+    import gc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import RetrievalTask, mux_batches
+    from repro_torch.kernels import _build
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    groups, seq_len, steps = 8, 128, 10
+    cfg = get_config("tmux-12l-768h")
+    n = cfg.mux.n
+    tcfg = TrainConfig(task="retrieval", lr=3e-3, warmup=1,
+                       total_steps=steps)
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"N={n}, {cfg.dtype}; {steps} steps of the retrieval task, "
+          f"{groups} groups x {n} x {seq_len} tokens, lr {tcfg.lr}, warmup "
+          f"{tcfg.warmup}")
+    state = Trainer.init_state(cfg, tcfg, seed=seed, device="cuda")
+    batches = [{k: torch.as_tensor(v).long().cuda() for k, v in b.items()}
+               for b in mux_batches(RetrievalTask(vocab=cfg.vocab,
+                                                  seq_len=seq_len),
+                                    groups=groups, n_mux=n, steps=steps + 2,
+                                    seed=seed)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step = Trainer.make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for i, b in enumerate(batches[:steps]):
+        t0 = time.perf_counter()
+        state, m = step(state, b, gen)
+        vals = {k: float(v) for k, v in m.items()}     # waits for the step
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(vals)
+        print(f"[train] step {i}: loss {vals['loss']:.6g}, grad_norm "
+              f"{vals['grad_norm']:.6g}, {walls[-1]:.3f} ms")
+        if not (math.isfinite(vals["loss"])
+                and math.isfinite(vals["grad_norm"])):
+            raise SystemExit(f"[train] FAIL: step {i} is not finite: {vals}")
+    ms = statistics.median(walls[2:])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] {ms:.3f} ms per step (median of steps 2-{steps - 1}), "
+          f"{groups * n / ms * 1e3:.1f} instances/s, "
+          f"{groups * n * seq_len / ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB (bf16, {torch.cuda.get_device_name(0)})")
+    profile_train(torch, step, state, batches[steps], gen, ms, cfg, tcfg)
+
+    check_train_on_card(torch, seed)
+
+    # (c) the trained weights through the kernels, against the plain path
+    kcfg = dataclasses.replace(cfg, mux=dataclasses.replace(cfg.mux,
+                                                            use_kernel=True))
+    ecfg = TrainConfig(task="lm")
+    kernel_state = {"model": state["model"].with_config(kcfg)}
+    index = [torch.randint(0, n, (groups, seq_len), generator=gen,
+                           device="cuda") for _ in range(2)]
+    evals = {}
+    for label, st, c in (("kernels", kernel_state, kcfg),
+                         ("plain", state, cfg)):
+        fn = Trainer.make_eval_step(c, ecfg)
+        _build.LAUNCHES.clear()
+        evals[label] = [fn(st, b, None, retr_index=ix)
+                        for b, ix in zip(batches[steps:], index)]
+        torch.cuda.synchronize()
+        evals[label + " launches"] = dict(_build.LAUNCHES)
+    want = {"hadamard_mux": 2, "index_embed_demux": 2}
+    print(f"[train] eval of the trained weights, kernel launches: "
+          f"{evals['kernels launches']}; plain {evals['plain launches']}")
+    if evals["kernels launches"] != want or evals["plain launches"]:
+        raise SystemExit(f"[train] FAIL: eval launches, expected {want}")
+    for i, (m, pm) in enumerate(zip(evals["kernels"], evals["plain"])):
+        for key in ("task_loss", "retr_loss"):
+            got, ref = float(m[key]), float(pm[key])
+            rel = abs(got - ref) / abs(ref)
+            print(f"[train] eval batch {i} {key}: kernels {got:.6g}, plain "
+                  f"{ref:.6g}, relative diff {rel:.3g} (tol {EVAL_LOSS_TOL})")
+            if not rel <= EVAL_LOSS_TOL:
+                raise SystemExit(f"[train] FAIL: eval {key} disagrees")
+
+    # (d) no kernel has a backward: a kernel-on config is refused
+    try:
+        Trainer.make_train_step(kcfg, tcfg)
+    except ValueError as e:
+        print(f"[train] (d) make_train_step on a kernel-on config raises: "
+              f"{str(e)[:80]}...")
+    else:
+        raise SystemExit("[train] FAIL: make_train_step took a kernel-on "
+                         "config")
+    return evals["kernels launches"]
+
+
+def profile_train(torch, step, state, batch, gen, wall, cfg, tcfg) -> None:
+    """Where one train step's device time goes (torch.profiler), and the
+    device operations and device time of the optimizer update alone (clip
+    and AdamW over copies of the parameters and moments)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bridge import decay_mask
+    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.training.trainer import Trainer
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+    rows = device_rows(prof.key_averages(), 1)
+    busy = sum(t for t, _ in rows)
+    if not busy:
+        print("[profile] train step: device time not measured (the profiler "
+              "saw no device activity)")
+    else:
+        print(f"[profile] train step: {wall:.3f} ms wall (unprofiled "
+              f"median), device busy {busy:.3f} ms, idle share "
+              f"{1 - busy / wall:.3f}")
+        for t, key in rows[:12]:
+            print(f"[profile]   {t:9.4f} ms  {key[:90]}")
+
+    params = {k: p.detach().clone() for k, p in Trainer.params(state).items()}
+    grads = {k: p.clone() for k, p in params.items()}
+    opt_state = {"mu": {k: t.clone() for k, t in
+                        state["opt_state"]["mu"].items()},
+                 "nu": {k: t.clone() for k, t in
+                        state["opt_state"]["nu"].items()},
+                 "step": state["opt_state"]["step"]}
+    opt = Trainer.make_optimizer(tcfg)
+    decay = decay_mask(cfg, params)
+
+    def update():
+        clipped, _ = clip_by_global_norm(grads, tcfg.grad_clip)
+        opt.step_(clipped, opt_state, params, decay)
+
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(walls[1:])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        update()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    print(f"[profile] optimizer update (clip + AdamW over {len(params)} "
+          f"tensors, {sum(p.numel() for p in params.values()) / 1e6:.1f}M "
+          f"params): {len(ops)} device operations, device time "
+          f"{dev_ms:.3f} ms, {host_ms:.3f} ms wall (median of 5 after a "
+          f"warm-up: {[round(w, 3) for w in walls[1:]]})")
+
+
+def check_train_on_card(torch, seed: int) -> None:
+    """(b) f32, 2 layers, d 256: 3 train steps on the card and on the CPU
+    from the same weights and retrieval indices; losses within 1e-4
+    relative, step 1's grads within 1e-4 x max|g| per tensor."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data import RetrievalTask, mux_batches
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(get_smoke_config("tmux-12l-768h", mux_n=8),
+                              n_layers=2)
+    tcfg = TrainConfig(task="retrieval", lr=1e-3, warmup=1, total_steps=10)
+    states = {d: Trainer.init_state(cfg, tcfg, seed=seed, device=d)
+              for d in ("cpu", "cuda")}
+    states["cuda"]["model"].load_state_dict(
+        states["cpu"]["model"].state_dict())
+    batches = list(mux_batches(RetrievalTask(vocab=cfg.vocab, seq_len=32),
+                               groups=4, n_mux=8, steps=3, seed=seed))
+    g = torch.Generator().manual_seed(seed)
+    index = [torch.randint(0, 8, (4, 32), generator=g) for _ in batches]
+    tb = {k: torch.as_tensor(v).long() for k, v in batches[0].items()}
+    grads = {d: Trainer.grads(s, {k: v.to(d) for k, v in tb.items()}, None,
+                              cfg, tcfg, retr_index=index[0])[2]
+             for d, s in states.items()}
+    ratio = {k: ((grads["cuda"][k].cpu() - want).abs().max()
+                 / want.abs().max()).item()
+             for k, want in grads["cpu"].items()}
+    worst = max((r for r in ratio.values() if not math.isnan(r)),
+                default=0.0)         # nan where a grad is all zero
+    bad = [k for k, r in ratio.items()
+           if not (r <= 1e-4 or torch.equal(grads["cuda"][k].cpu(),
+                                             grads["cpu"][k]))]
+    fns = {d: Trainer.make_train_step(cfg, tcfg) for d in states}
+    rel = []
+    for b, ix in zip(batches, index):
+        got = {d: float(fns[d](s, b, None, retr_index=ix)[1]["loss"])
+               for d, s in states.items()}
+        rel.append(abs(got["cuda"] - got["cpu"]) / abs(got["cpu"]))
+    print(f"[train] (b) f32 {cfg.n_layers} layers d {cfg.d_model}, card vs "
+          f"CPU: step-1 grads within {worst:.3g} x max|g| (tol 1e-4; "
+          f"{len(bad)} tensors outside), "
+          f"losses' relative diffs {[f'{r:.3g}' for r in rel]} (tol 1e-4)")
+    if bad or not max(rel) <= 1e-4:
+        raise SystemExit("[train] FAIL: the card's f32 steps disagree with "
+                         "the CPU's")
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the evaluation slice
 # ---------------------------------------------------------------------------
 
@@ -1277,6 +1701,8 @@ def main(argv=None) -> int:
         torch, args.seed)["paged_decode_attention"]
     launches["flash_attention"] = run_eval(torch, args.seed)[
         "flash_attention"]
+    run_router(torch, args.seed)
+    run_train(torch, args.seed)
 
     # One entry per kernel, at the bf16 shape its slice runs most often
     # (L = 1 prefill demux, C = 1 decode demux, L = 1 decode-step mux, the

@@ -25,6 +25,14 @@ A cache pytree has the same head / scanned blocks / tail split, with one
 dict of leaves per layer (``k``/``v``/``pos`` contiguous, or
 ``k_pages``/``v_pages``/``pos`` paged); ``cache_from_jax`` splits it into
 one such dict of tensors per layer, in layer order.
+
+An optimizer state ``{"mu", "nu", "step"}`` holds trees of the params'
+structure, so ``opt_state_from_jax`` maps its moments as params.  Leaves
+may also be CPU tensors (``checkpoint.read_reference_checkpoint`` gives
+those, numpy having no bfloat16).
+
+``decay_mask`` gives, per port tensor name, the reference AdamW's
+weight-decay decision, which it takes on its own tree layout.
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ import torch
 
 
 def _tensor(a) -> torch.Tensor:
+    if torch.is_tensor(a):
+        return a.clone()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":           # ml_dtypes.bfloat16
         return torch.from_numpy(np.array(a).view(np.uint16)) \
@@ -43,7 +53,7 @@ def _tensor(a) -> torch.Tensor:
 def _flatten(tree, prefix: str, out: dict) -> None:
     if isinstance(tree, dict):
         if "w" in tree and set(tree) <= {"w", "b"}:          # Linear
-            out[prefix + "weight"] = _tensor(np.swapaxes(tree["w"], -1, -2))
+            out[prefix + "weight"] = _tensor(tree["w"].swapaxes(-1, -2))
             if "b" in tree:
                 out[prefix + "bias"] = _tensor(tree["b"])
             return
@@ -56,14 +66,14 @@ def _flatten(tree, prefix: str, out: dict) -> None:
 def _index(tree, g: int):
     if isinstance(tree, dict):
         return {k: _index(v, g) for k, v in tree.items()}
-    return np.asarray(tree)[g]
+    return tree[g]
 
 
 def _layers(head, blocks, tail, cfg, what: str) -> list:
     """Per-layer trees in layer order: layer ``head + g * period + j``
     reads ``blocks[j][leaf][g]``."""
     period = len(blocks)
-    groups = np.asarray(_first_leaf(blocks[0])).shape[0] if blocks else 0
+    groups = _first_leaf(blocks[0]).shape[0] if blocks else 0
     layers = list(head)
     layers += [None] * (period * groups)
     for j, block in enumerate(blocks):
@@ -93,6 +103,35 @@ def params_from_jax(np_params: dict, cfg) -> dict[str, torch.Tensor]:
         _flatten(layer, f"layers.{i}.", out)
     if "task_head" in np_params:
         out["task_head.w"] = _tensor(np_params["task_head"]["w"])
+    return out
+
+
+def opt_state_from_jax(np_opt_state: dict, cfg) -> dict:
+    """Reference AdamW state {"mu", "nu": param trees, "step"} -> the port's
+    {"mu", "nu": ``params_from_jax`` names -> tensors, "step": int}."""
+    return {"mu": params_from_jax(np_opt_state["mu"], cfg),
+            "nu": params_from_jax(np_opt_state["nu"], cfg),
+            "step": int(np_opt_state["step"])}
+
+
+def decay_mask(cfg, params) -> dict[str, bool]:
+    """Per port tensor name (``params`` maps names to tensors or shapes):
+    whether the reference's AdamW decays it.  The reference decays a leaf
+    iff ``ndim >= 2`` in its own tree, where every layer of the scanned
+    pattern (``cfg.layer_pattern()``) has its params stacked over groups,
+    one axis more than the port's.  So a scanned layer's norm ``scale`` /
+    ``bias`` and Linear ``bias`` are decayed, an unscanned layer's are not,
+    nor ``final_norm``'s; every other name keeps its ndim across the
+    bridge."""
+    head, period, groups = cfg.layer_pattern()
+    scanned = range(head, head + period * groups)
+    out = {}
+    for name, p in params.items():
+        ndim = len(p.shape)
+        parts = name.split(".")
+        if parts[0] == "layers" and int(parts[1]) in scanned:
+            ndim += 1
+        out[name] = ndim >= 2
     return out
 
 

@@ -1,0 +1,5 @@
+from repro_torch.checkpoint.io import (load_checkpoint,
+                                       read_reference_checkpoint,
+                                       save_checkpoint)
+
+__all__ = ["save_checkpoint", "load_checkpoint", "read_reference_checkpoint"]

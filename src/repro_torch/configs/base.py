@@ -85,9 +85,7 @@ class MuxConfig:
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Decode-cache layout and scheduling knobs.  Same fields and defaults
-    as ``repro.configs.base.ServingConfig``.  The port serves every field
-    but the replica router's (``replicas``, ``router_policy``,
-    ``router_sync``)."""
+    as ``repro.configs.base.ServingConfig``."""
     paged: bool = False
     page_size: int = 16
     pool_pages: int = 0
@@ -241,6 +239,35 @@ class ModelConfig:
         mlp = "dense" if self.d_ff else None
         return [dict(mixer="attn", mlp=mlp, window=None)
                 for _ in range(self.n_layers)]
+
+    def layer_pattern(self) -> tuple[int, int, int]:
+        """(head_len, period, n_groups) of the reference's layer stack:
+        layers [0, head) run unscanned, then n_groups repeats of ``period``
+        layers are scanned (their params stacked over groups), then the
+        remainder runs unscanned.  The port runs a plain loop over its
+        layers; ``bridge.decay_mask`` reads from this which of its tensors
+        the reference stacks."""
+        kinds = self.layer_kinds()
+        n = self.n_layers
+        best = (n, 1, 0)  # fully unscanned fallback
+        for head in range(0, min(n, 8)):
+            for period in range(1, 13):
+                groups = 0
+                while True:
+                    s = head + (groups + 1) * period
+                    if s > n:
+                        break
+                    if kinds[head + groups * period: s] != \
+                            kinds[head: head + period]:
+                        break
+                    groups += 1
+                if groups >= 2:
+                    scanned = period * groups
+                    best_scanned = best[1] * best[2]
+                    if scanned > best_scanned or (
+                            scanned == best_scanned and period < best[1]):
+                        best = (head, period, groups)
+        return best
 
 
 def replace(cfg, **kw):

@@ -1,6 +1,6 @@
 """Seeded numpy task generators and batch iterators (copies of the
-reference's numpy-only ``repro.data`` modules; the image digits wait for
-the image models)."""
+reference's numpy-only ``repro.data`` modules)."""
+from repro_torch.data.images import SyntheticDigits
 from repro_torch.data.pipeline import batches, mux_batches
 from repro_torch.data.synthetic import (
     KeywordClassificationTask,
@@ -14,6 +14,7 @@ __all__ = [
     "KeywordClassificationTask",
     "PairMatchTask",
     "TaggingTask",
+    "SyntheticDigits",
     "batches",
     "mux_batches",
 ]

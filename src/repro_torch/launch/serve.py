@@ -12,15 +12,25 @@ paged KV pool with the paged decode-attention kernel and chunked prefill:
         --workload poisson --num-requests 160 --rate 8 --prompt-len 16 \
         --gen 16 --paged --use-kernel --mux-kernel --fuse-demux
 
+The same trace through the replica router (``--replicas`` > 1 with
+``--workload poisson``): R engine + scheduler replicas over one set of
+weights, each with its own cache or page pool, behind one dispatch queue:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mux-n 40 --batch 8 \
+        --workload poisson --num-requests 160 --rate 8 --prompt-len 16 \
+        --gen 16 --paged --use-kernel --mux-kernel --fuse-demux \
+        --replicas 2 --router-policy least_loaded --report
+
 It takes the flags of ``repro.launch.serve`` (``--paged``, ``--page-size``,
 ``--pool-pages``, ``--use-kernel``, ``--kblock-pages``, ``--prefill-chunk``,
 ``--policy``, ``--preempt``, ``--slo-mix``, ``--report``, ``--width-set``,
-``--width-policy``, ``--max-preemptions``, ``--trace``, ``--metrics``,
-``--baseline``).  The replica router (``--replicas`` > 1) and multi-device
-meshes raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.  Two flags are the port's own: ``--device`` (the GPU unless ``cpu`` is
-asked for) and ``--mux-kernel`` (``MuxConfig.use_kernel``: the fused CUDA
-mux and demux).  Weights and prompts are random, drawn from ``--seed``.
+``--width-policy``, ``--max-preemptions``, ``--replicas``,
+``--router-policy``, ``--router-sync``, ``--trace``, ``--metrics``,
+``--baseline``).  Multi-device meshes raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.  Two flags are the port's own:
+``--device`` (the GPU unless ``cpu`` is asked for) and ``--mux-kernel``
+(``MuxConfig.use_kernel``: the fused CUDA mux and demux).  Weights and
+prompts are random, drawn from ``--seed``.
 """
 import argparse
 import dataclasses
@@ -78,8 +88,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str:
     """The first requested feature the port does not serve yet, or ''."""
-    if args.replicas > 1:
-        return "--replicas > 1: the replica router is ROADMAP Queue A item 8"
     if args.device_count > 1 or args.multi_pod or "," in args.mesh_shape:
         return ("a multi-device mesh: distribution is ROADMAP Queue A "
                 "item 12")
@@ -230,6 +238,55 @@ def _run_workload(args, cfg, model):
     return sched, stats
 
 
+def _run_router(args, cfg, model):
+    """Replay a Poisson trace through the replica router: R engine +
+    scheduler replicas over ``model``'s weights, load-aware dispatch, the
+    aggregated report; returns (router, stats)."""
+    import torch
+
+    from repro_torch.serving.router import ReplicaRouter
+    from repro_torch.serving.scheduler import poisson_trace
+    n = max(cfg.mux.n, 1)
+    max_total = args.prompt_len * 2 + args.gen * 4 + 1
+    tracer = _make_tracer(args)
+    router = ReplicaRouter.build(model, batch=args.batch, max_len=max_total,
+                                 replicas=args.replicas, tracer=tracer)
+    trace = poisson_trace(
+        args.num_requests, rate=args.rate, prompt_len=args.prompt_len,
+        gen_len=args.gen, vocab=cfg.vocab, max_total=max_total,
+        seed=args.seed, slo_mix=args.slo_mix)
+    t0 = time.perf_counter()
+    stats = router.run(trace)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    dt = time.perf_counter() - t0
+    lanes = args.batch * n
+    print(f"[serve] router: {args.num_requests} requests over "
+          f"{stats.replicas} replicas x {lanes} lanes "
+          f"({args.batch} slots x {n}), policy={stats.policy}"
+          + (", sync" if stats.sync else "")
+          + (f", paged (page_size={cfg.serving.page_size})"
+             if cfg.serving.paged else ""))
+    print(f"[serve] fleet: {stats.router_steps} router steps, "
+          f"{stats.generated_tokens} tokens in {dt:.2f}s "
+          f"({stats.tokens_per_step:.2f} tok/step, "
+          f"{stats.generated_tokens / max(dt, 1e-9):.0f} tok/s wall), "
+          f"{stats.requeues} backpressure requeues")
+    for i, rep in enumerate(stats.per_replica):
+        print(f"[serve]   replica {i}: {rep['dispatched']} dispatched, "
+              f"{rep['finished']} finished, {rep['decode_steps']} steps, "
+              f"occupancy {rep['mean_occupancy']:.2f}, "
+              f"{rep['preemptions']} preemptions")
+    if args.report:
+        for line in _report_lines(stats):
+            print(line)
+    _export_telemetry(args, tracer)
+    if stats.finished != args.num_requests:
+        raise SystemExit(f"[serve] FAIL: only {stats.finished}/"
+                         f"{args.num_requests} requests completed")
+    return router, stats
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     missing = _unported(args)
@@ -263,6 +320,8 @@ def main(argv=None):
     print(f"[serve] {cfg.name} N={cfg.mux.n} on {model.device}"
           + (" (mux kernel)" if args.mux_kernel else "")
           + (", fuse_demux" if args.fuse_demux else ""))
+    if workload and args.replicas > 1:
+        return _run_router(args, cfg, model)
     if workload:
         return _run_workload(args, cfg, model)
     return _run_lockstep(args, cfg, model)

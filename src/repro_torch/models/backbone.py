@@ -59,6 +59,14 @@ class Block(nn.Module):
                            activation=cfg.activation, generator=generator,
                            device=device, dtype=dtype)
 
+    def with_attn_config(self, acfg) -> "Block":
+        """This block's weights (shared) with its attention under ``acfg``."""
+        out = Block.__new__(Block)
+        nn.Module.__init__(out)
+        out.norm1, out.norm2, out.mlp = self.norm1, self.norm2, self.mlp
+        out.attn = self.attn.with_config(acfg)
+        return out
+
     def forward(self, x, *, positions, cache=None, cache_index=None,
                 block_table=None, chunk_lens=None):
         out, cache = self.attn(self.norm1(x), positions=positions,
@@ -86,6 +94,7 @@ class Backbone(nn.Module):
         g = torch.Generator(device=device).manual_seed(seed)
         kw = dict(generator=g, device=device, dtype=cfg.pdtype)
         self.cfg = cfg
+        self.use_flash = use_flash
         self.embed = Embedding(cfg.vocab, cfg.d_model, **kw)
         self.final_norm = make_norm(cfg.norm)(cfg.d_model, device=device,
                                               dtype=cfg.pdtype)
@@ -128,6 +137,7 @@ class Backbone(nn.Module):
         out.cfg = dataclasses.replace(
             cfg, mux=dataclasses.replace(cfg.mux, n=width),
             serving=dataclasses.replace(cfg.serving, width_set=()))
+        out.use_flash = self.use_flash
         out.embed, out.final_norm = self.embed, self.final_norm
         out.lm_head, out.layers = self.lm_head, self.layers
         out.mux = out.demux = None
@@ -136,6 +146,32 @@ class Backbone(nn.Module):
                                                        width)
             out.demux = get_demux(cfg.mux.demux).narrow(self.demux, cfg.mux,
                                                         width)
+        return out
+
+    def with_config(self, cfg: ModelConfig) -> "Backbone":
+        """This model under ``cfg``: every parameter shared, none copied.
+        ``cfg`` may differ from this model's config only in ``serving`` and
+        ``mux.use_kernel`` (a replica's serving stack; the kernels on or
+        off); any other change raises, since it would shape the weights or
+        change the function they compute.  Each layer's attention takes
+        ``cfg``'s paged-kernel settings."""
+        same = dataclasses.replace(
+            cfg, serving=self.cfg.serving,
+            mux=dataclasses.replace(cfg.mux,
+                                    use_kernel=self.cfg.mux.use_kernel))
+        if same != self.cfg:
+            changed = [f.name for f in dataclasses.fields(cfg)
+                       if getattr(same, f.name) != getattr(self.cfg, f.name)]
+            raise ValueError(f"a view of {self.cfg.name!r} may change only "
+                             f"serving and mux.use_kernel; {changed} differ")
+        out = Backbone.__new__(Backbone)
+        nn.Module.__init__(out)
+        out.cfg, out.use_flash = cfg, self.use_flash
+        out.embed, out.final_norm = self.embed, self.final_norm
+        out.lm_head, out.mux, out.demux = self.lm_head, self.mux, self.demux
+        acfg = cfg.attn_config(use_flash=self.use_flash)
+        out.layers = nn.ModuleList(b.with_attn_config(acfg)
+                                   for b in self.layers)
         return out
 
     # -- pieces ---------------------------------------------------------------------

@@ -204,6 +204,22 @@ class Attention(nn.Module):
         self.wv = Linear(cfg.dim, kvd, bias=cfg.qkv_bias, **kw)
         self.wo = Linear(qd, cfg.dim, bias=False, **kw)
 
+    def with_config(self, cfg: AttnConfig) -> "Attention":
+        """This block's projections (shared, not copied) under ``cfg``,
+        which must give them the same shapes."""
+        shapes = (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                  cfg.qkv_bias)
+        c = self.cfg
+        if shapes != (c.dim, c.n_heads, c.n_kv_heads, c.head_dim,
+                      c.qkv_bias):
+            raise ValueError("an attention view cannot change the shapes of "
+                             "its projections")
+        out = Attention.__new__(Attention)
+        nn.Module.__init__(out)
+        out.cfg = cfg
+        out.wq, out.wk, out.wv, out.wo = self.wq, self.wk, self.wv, self.wo
+        return out
+
     @staticmethod
     def init_cache(cfg: AttnConfig, batch: int, max_len: int,
                    dtype=torch.bfloat16, device=None) -> dict:

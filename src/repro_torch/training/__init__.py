@@ -1,3 +1,2 @@
-"""Evaluation half of the training stack: the paper's mixed objective and
-``Trainer.make_eval_step`` (the optimizer and the train step wait for the
-training slice)."""
+"""Training stack: the paper's mixed objective, the train step (AdamW,
+clipping, microbatching), ``fit`` and ``make_eval_step``."""

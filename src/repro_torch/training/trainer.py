@@ -1,23 +1,32 @@
-"""Evaluation half of ``repro.training.trainer``: ``TrainConfig``, the task
-head of ``init_state``, the paper's mixed objective (``loss_fn``) and
-``make_eval_step``.
+"""Training stack — the port of ``repro.training.trainer``: ``TrainConfig``,
+``init_state`` with the task head, the paper's mixed objective
+(``loss_fn``), ``make_optimizer``, ``make_train_step`` (with gradient
+accumulation over microbatches), ``make_eval_step`` and ``fit``.
 
 The reference's state is a pytree {params, opt_state, step}; here it is a
-dict {"model": Backbone, "task_head": {"w": (d, n_classes)}} — the task
-head only for the cls/tag tasks.  ``make_optimizer``, ``make_train_step``
-and ``fit`` wait for the training slice (ROADMAP Queue A item 11).
+dict {"model": Backbone, "task_head": {"w": (d, n_classes)}} (the task
+head only for the cls/tag tasks), to which the first train step adds
+"opt_state" (AdamW's {"mu", "nu", "step"}, keyed by ``Trainer.params``'
+names) and "step".  The train step runs autograd over the plain path and
+updates the parameters in place.  Like the reference, which cannot
+differentiate its Pallas kernels, it does not train through the CUDA
+kernels (none has a backward), and refuses a config or model that would
+send the forward through them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.bridge import decay_mask
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import retrieval as retr
 from repro_torch.models import Backbone
+from repro_torch.optim import AdamW, clip_by_global_norm
+from repro_torch.optim.schedule import linear_warmup_cosine
 from repro_torch.training import losses
 
 
@@ -37,6 +46,23 @@ class TrainConfig:
 
 
 class Trainer:
+    @staticmethod
+    def make_optimizer(tcfg: TrainConfig) -> AdamW:
+        return AdamW(lr=linear_warmup_cosine(tcfg.lr, tcfg.warmup,
+                                             tcfg.total_steps),
+                     weight_decay=tcfg.weight_decay,
+                     state_dtype=tcfg.state_dtype)
+
+    @staticmethod
+    def params(state: dict) -> dict[str, torch.Tensor]:
+        """The trained tensors by name: the model's parameters (its
+        ``state_dict`` names) and, for cls/tag, ``task_head.w`` — the names
+        ``bridge.params_from_jax`` gives."""
+        out = dict(state["model"].named_parameters())
+        if "task_head" in state:
+            out["task_head.w"] = state["task_head"]["w"]
+        return out
+
     @staticmethod
     def init_state(cfg: ModelConfig, tcfg: TrainConfig, *, seed: int = 0,
                    device=None, use_flash: bool = False) -> dict:
@@ -124,6 +150,99 @@ class Trainer:
     # -- step factories -----------------------------------------------------------
 
     @staticmethod
+    def grads(state: dict, batch: dict, rng, cfg: ModelConfig,
+              tcfg: TrainConfig, *, retr_index=None):
+        """(loss, metrics, grads) of ``loss_fn`` by autograd over the plain
+        path, grads keyed by ``Trainer.params``' names (zeros for a tensor
+        the loss does not reach, e.g. a frozen mux transform, as the
+        reference's stop_gradient gives).  With ``tcfg.microbatch`` = k > 1
+        the batch's leading axis is split into k chunks (it must divide),
+        and loss, metrics and grads are summed over the chunks and divided
+        by k, as the reference's scan does; ``retr_index`` is then a list
+        of one (B/k, L) index per chunk (the reference draws chunk i's
+        from the i-th key of ``jax.random.split(rng, k)``)."""
+        k = tcfg.microbatch if tcfg.microbatch and tcfg.microbatch > 1 else 1
+        params = Trainer.params(state)
+        if "task_head" in state:
+            state["task_head"]["w"].requires_grad_(True)
+        for p in params.values():
+            p.grad = None
+        if k > 1:
+            rows = next(iter(batch.values())).shape[0]
+            if rows % k:
+                raise ValueError(f"microbatch={k} does not divide the "
+                                 f"batch's {rows} rows")
+            chunks = [{key: v.chunk(k)[i] for key, v in batch.items()}
+                      for i in range(k)]
+            index = [None] * k if retr_index is None else list(retr_index)
+            if len(index) != k:
+                raise ValueError(f"retr_index needs one index per "
+                                 f"microbatch ({k}), got {len(index)}")
+        else:
+            chunks, index = [batch], [retr_index]
+        loss_sum, metric_sum = 0.0, {}
+        with torch.enable_grad():
+            for chunk, ix in zip(chunks, index):
+                loss, metrics = Trainer.loss_fn(state, chunk, rng, cfg, tcfg,
+                                                retr_index=ix)
+                loss.backward()
+                loss_sum = loss_sum + loss.detach()
+                for key, v in metrics.items():
+                    metric_sum[key] = metric_sum.get(key, 0.0) + v.detach()
+        def mean(total):
+            return total / k if k > 1 else total
+
+        grads = {}
+        for name, p in params.items():
+            grads[name] = torch.zeros_like(p) if p.grad is None \
+                else mean(p.grad)
+            p.grad = None
+        return mean(loss_sum), {key: mean(v)
+                                for key, v in metric_sum.items()}, grads
+
+    @staticmethod
+    def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+        """``train_step(state, batch, rng, *, retr_index=None) -> (state,
+        metrics)``: ``Trainer.grads``, clipped by global norm, then one
+        AdamW step with the reference's weight-decay mask
+        (``bridge.decay_mask``), applied in place to
+        ``Trainer.params(state)``; the first step adds "opt_state" and
+        "step" to the state.  Metrics (0-d float32 tensors on the model's
+        device): loss, grad_norm, task_loss, retr_loss, moe_aux, acc."""
+        if cfg.mux.use_kernel:
+            raise ValueError(
+                "make_train_step: mux.use_kernel sends the forward through "
+                "the CUDA mux and demux kernels, which have no backward (nor "
+                "do the reference's Pallas kernels); train on the plain path "
+                "and evaluate the trained weights through "
+                "Backbone.with_config")
+        opt = Trainer.make_optimizer(tcfg)
+
+        def train_step(state, batch, rng, *, retr_index=None):
+            model = state["model"]
+            if model.use_flash:
+                raise ValueError(
+                    "train_step: the model routes attention through the "
+                    "flash kernel (use_flash), which has no backward; "
+                    "train a model built without it")
+            batch = {key: _to_device(v, model.device)
+                     for key, v in batch.items()}
+            loss, metrics, grads = Trainer.grads(state, batch, rng, cfg, tcfg,
+                                                 retr_index=retr_index)
+            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+            params = Trainer.params(state)
+            if "opt_state" not in state:
+                state["opt_state"] = opt.init(params)
+                state["step"] = 0
+            opt.step_(grads, state["opt_state"], params,
+                      decay_mask(cfg, params))
+            state["step"] += 1
+            metrics.update(loss=loss, grad_norm=gnorm)
+            return state, metrics
+
+        return train_step
+
+    @staticmethod
     def make_eval_step(cfg: ModelConfig, tcfg: TrainConfig):
         """``eval_step(state, batch, rng, *, retr_index=None) -> metrics``
         (task_loss, retr_loss, moe_aux, acc, loss: 0-d float32 tensors),
@@ -139,6 +258,33 @@ class Trainer:
             return metrics
 
         return eval_step
+
+    # -- convenience loop (CPU-scale experiments / examples) -------------------
+
+    @staticmethod
+    def fit(cfg: ModelConfig, tcfg: TrainConfig, batch_iter, *,
+            seed: int = 0, state: Optional[dict] = None, log_every: int = 50,
+            callback=None, device=None):
+        """Train over ``batch_iter``; returns (state, history).  A new state
+        is ``init_state(cfg, tcfg, seed=seed, device=device)``; the
+        retrieval index is drawn from a generator seeded with ``seed + 2``
+        on the model's device.  ``history`` holds {"step", metrics as
+        floats} every ``log_every`` steps and at ``total_steps - 1``, and
+        ``callback(step, metrics)`` sees each entry."""
+        state = state or Trainer.init_state(cfg, tcfg, seed=seed,
+                                            device=device)
+        rng = torch.Generator(device=state["model"].device) \
+            .manual_seed(seed + 2)
+        step_fn = Trainer.make_train_step(cfg, tcfg)
+        history = []
+        for i, batch in enumerate(batch_iter):
+            state, metrics = step_fn(state, batch, rng)
+            if i % log_every == 0 or i == tcfg.total_steps - 1:
+                m = {key: float(v) for key, v in metrics.items()}
+                history.append({"step": i, **m})
+                if callback:
+                    callback(i, m)
+        return state, history
 
 
 def _to_device(a, device) -> torch.Tensor:

@@ -47,7 +47,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.serving.paging, repro_torch.launch.serve, "
             "repro_torch.bridge, repro_torch.kernels.paged_attention.ops, "
             "repro_torch.kernels.attention.ops, repro_torch.data, "
-            "repro_torch.training.trainer; "
+            "repro_torch.training.trainer, repro_torch.serving.router, "
+            "repro_torch.launch.train, repro_torch.checkpoint, "
+            "repro_torch.optim; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad)")
@@ -100,7 +102,7 @@ def test_config_validation_uses_the_port_registry():
         torch_base.ServingConfig(page_size=0)
 
 
-@pytest.mark.parametrize("flags", [["--replicas", "2"],
+@pytest.mark.parametrize("flags", [["--mesh-shape", "2,2"],
                                    ["--device-count", "2"]])
 def test_serve_refuses_what_it_does_not_serve(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
