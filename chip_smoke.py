@@ -70,7 +70,39 @@ Phases, any failure of which ends the run with a non-zero exit:
      grads within 1e-4 x max|g|); the trained weights evaluated through a
      ``Backbone.with_config`` view with the mux and demux kernels against
      the plain path (losses within EVAL_LOSS_TOL, launches counted); and
-     ``make_train_step`` refusing a kernel-on config.
+     ``make_train_step`` refusing a kernel-on config;
+  8. the sliding window: ``gemma3-4b`` at full width and depth (34 layers:
+     29 local with rings of 1024 rows, 5 global), N=8, bf16 (random weights
+     from --seed), served by ``ContinuousScheduler`` on the paged pool
+     (page_size 16, 4 slots, max_len 2048, prefill_chunk 64) with the mux,
+     both demux and the paged kernels: 14 requests of 1100-1500 prompt
+     tokens (every ring wraps), 32 new tokens each; the allocator's layer
+     split (global layers paged, local layers ringed), pool and ring bytes
+     and peak memory; the same trace through a contiguous scheduler with
+     every kernel off, replaying the kernel run's sampled tokens so that
+     every step is teacher-forced, must give the same decode steps and
+     tokens, every step's logits within LOGIT_TOL and the plain path's own
+     greedy picks equal wherever the margin is clear; then a profile of a
+     scheduler step; before it, a
+     lock-step ``Engine.prefill`` of 1200-token prompts (past the rings,
+     through the index-embed demux) and one step against the plain path;
+  9. the rest of the dense family through flash: ``gemma3-4b`` (all 34
+     layers, L 1280, past its window), ``gemma-7b`` (4 of 28 layers, L 512)
+     and ``nemotron-4-340b`` (2 of 96 layers, L 256; 37 GB of bf16
+     weights), N=8, B 1, evaluated through ``Trainer.make_eval_step`` with
+     ``Backbone(use_flash=True)`` (flash on the global layers, at head dims
+     256 and 192) and the mux and demux kernels, against a ``with_config``
+     view on the same weights with every kernel off (logits within
+     LOGIT_TOL, losses within EVAL_LOSS_TOL), eval-step times on and off in
+     turns, peak memory under 70 GB, and a profile of each model's step.
+
+Phase 2 also holds the mux and both demux kernels at every shape phases
+8 and 9 launch them (d 2560, 3072 and 18432), the paged kernel at
+gemma3-4b's chunked shape (64 rows x n_rep 2, hd 256) and flash attention
+at the three models' shapes in phase 9 against their plain versions.  The
+mux and demux launches of phases 3-9 record their shapes, and the run
+fails if one of them was not held in phase 2 (the launch plans are chosen
+from the shape).
 
 It prints one JSON line of per-kernel numbers, then the card's
 ``nvidia-smi`` name and power limit, and last a JSON line with the device.
@@ -247,11 +279,28 @@ def check_kernels(torch, gen):
                 layer.bias.copy_(b)
         return m
 
+    both = (torch.bfloat16, torch.float32)
+    bf16 = (torch.bfloat16,)
     cases = []   # (name, shape, kernel fn, plain fn, f32 plain output, bytes, flops)
-    for b, n, l, d in ((8, 40, 1, 768), (8, 40, 104, 768), (3, 5, 7, 200),
-                       (2, 8, 1032, 2560)):
+    for b, n, l, d, dtypes in (
+            (8, 40, 1, 768, both), (8, 40, 104, 768, both),
+            (3, 5, 7, 200, both), (2, 8, 1032, 2560, both),
+            # tmux-12l-768h's other in-model shapes: the scheduler's prime
+            # of the 40-token prefix, chunks of 4 and 17 rows, the trained
+            # weights' eval (128 tokens + the prefix)
+            (8, 40, 40, 768, bf16), (8, 40, 4, 768, bf16),
+            (8, 40, 17, 768, bf16), (8, 40, 168, 768, bf16),
+            # the dense family's in-model shapes, in the models' dtype:
+            # gemma3-4b's [window] steps (the lock-step prefill past the
+            # rings, one decode step, a 64-row chunk of 4 slots) and its
+            # [dense] eval, gemma-7b's and nemotron-4-340b's [dense] evals
+            # (L + the 8-token prefix; the scheduler's prime is the prefix)
+            (2, 8, 1208, 2560, bf16), (2, 8, 1, 2560, bf16),
+            (4, 8, 8, 2560, bf16), (4, 8, 64, 2560, bf16),
+            (1, 8, 1288, 2560, bf16), (1, 8, 520, 3072, bf16),
+            (1, 8, 264, 18432, bf16)):
         x32, v32 = randn(b, n, l, d), randn(n, d)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             x, v = x32.to(dtype), v32.to(dtype)
             want = mux_ref.hadamard_mux(x.float(), v.float())
             s = x.element_size()
@@ -263,22 +312,40 @@ def check_kernels(torch, gen):
                           lambda x=x, v=v: mux_ref.hadamard_mux(x, v), want,
                           s * (b * n * l * d + n * d + b * l * d),
                           2 * b * n * l * d))
-    demux_shapes = (("index_embed_demux", 8, 40, 1, 768, 1536),
-                    ("index_embed_demux", 8, 40, 104, 768, 1536),
-                    ("index_embed_demux", 3, 5, 7, 200, 300),
-                    ("index_embed_demux", 2, 8, 1024, 2560, 5120),
-                    ("index_embed_demux", 3, 3, 17, 96, 160),
-                    ("decode_demux", 8, 40, 1, 768, 1536),
-                    ("decode_demux", 8, 40, 4, 768, 1536),
-                    ("decode_demux", 3, 3, 3, 96, 160),
-                    ("decode_demux", 3, 5, 7, 200, 300))
-    for name, b, n, l, d, hid in demux_shapes:
+    demux_shapes = (("index_embed_demux", 8, 40, 1, 768, 1536, both),
+                    ("index_embed_demux", 8, 40, 104, 768, 1536, both),
+                    ("index_embed_demux", 3, 5, 7, 200, 300, both),
+                    ("index_embed_demux", 2, 8, 1024, 2560, 5120, both),
+                    ("index_embed_demux", 3, 3, 17, 96, 160, both),
+                    ("decode_demux", 8, 40, 1, 768, 1536, both),
+                    ("decode_demux", 8, 40, 4, 768, 1536, both),
+                    ("decode_demux", 3, 3, 3, 96, 160, both),
+                    ("decode_demux", 3, 5, 7, 200, 300, both),
+                    # tmux-12l-768h's 17-row chunk, its trained weights'
+                    # eval
+                    ("decode_demux", 8, 40, 17, 768, 1536, bf16),
+                    ("index_embed_demux", 8, 40, 128, 768, 1536, bf16),
+                    # nemotron-4-340b's width (d 18432, H 36864: W1 alone
+                    # is 2.7 GB in bf16), the model's dtype only: its
+                    # [dense] eval shape and a decode step of 4 slots
+                    ("index_embed_demux", 1, 8, 256, 18432, 36864, bf16),
+                    ("decode_demux", 4, 8, 1, 18432, 36864, bf16),
+                    # gemma3-4b's [window] chunk: 4 slots x 64 rows
+                    ("decode_demux", 4, 8, 64, 2560, 5120, both),
+                    # the rest of the dense family's in-model shapes:
+                    # gemma3-4b's lock-step prefill (last row only) and
+                    # decode step, its [dense] eval, gemma-7b's
+                    ("index_embed_demux", 2, 8, 1, 2560, 5120, bf16),
+                    ("decode_demux", 2, 8, 1, 2560, 5120, bf16),
+                    ("index_embed_demux", 1, 8, 1280, 2560, 5120, bf16),
+                    ("index_embed_demux", 1, 8, 512, 3072, 6144, bf16))
+    for name, b, n, l, d, hid, dtypes in demux_shapes:
         h32, p32 = randn(b, l, d), randn(b, n, d)
         w1_32, b1_32 = randn(hid, 2 * d, scale=(2 * d) ** -0.5), \
             randn(hid, scale=0.1)
         w2_32, b2_32 = randn(d, hid, scale=hid ** -0.5), randn(d, scale=0.1)
         fn = getattr(demux_kernel, name)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             h, p, w1, b1, w2, b2 = (t.to(dtype) for t in
                                     (h32, p32, w1_32, b1_32, w2_32, b2_32))
             with torch.no_grad():
@@ -328,6 +395,63 @@ def check_kernels(torch, gen):
     print(f"[kernel] launch floor: zero_ of a (8, 1, 768) bf16 tensor "
           f"{time_ms(out.zero_):.4f} ms")
     return results
+
+
+SHAPE_CHECKED = ("hadamard_mux", "index_embed_demux", "decode_demux")
+
+
+def shape_key(name, dtype, shape) -> tuple:
+    """(kernel, dtype, B, N, L, d, H) of a mux or demux launch: the shape
+    its launch plan is chosen from (H is None for the mux)."""
+    return (name, str(dtype).removeprefix("torch."), shape["B"], shape["N"],
+            shape["L"], shape["d"], shape.get("H"))
+
+
+def record_shapes() -> set:
+    """Wraps the mux and demux kernels' wrappers so that each launch adds
+    its ``shape_key`` to the returned set: the in-model shapes that phase
+    2 must have held against the plain version (``check_shapes``)."""
+    from repro_torch.kernels.demux import kernel as demux_kernel
+    from repro_torch.kernels.multiplex import kernel as mux_kernel
+
+    seen = set()
+
+    def wrap(module, name):
+        fn = getattr(module, name)
+
+        def recorded(*args):
+            x = args[0]
+            if name == "hadamard_mux":
+                b, n, l, d = x.shape
+                shape = dict(B=b, N=n, L=l, d=d)
+            else:
+                b, l, d = x.shape
+                shape = dict(B=b, N=args[1].shape[1], L=l, d=d,
+                             H=args[2].shape[0])
+            if x.numel():                    # an empty call launches nothing
+                seen.add(shape_key(name, x.dtype, shape))
+            return fn(*args)
+        setattr(module, name, recorded)
+
+    wrap(mux_kernel, "hadamard_mux")
+    wrap(demux_kernel, "index_embed_demux")
+    wrap(demux_kernel, "decode_demux")
+    return seen
+
+
+def check_shapes(seen: set, results: list) -> None:
+    """Fails unless every mux and demux shape the phases launched was held
+    against its plain version in phase 2."""
+    held = {shape_key(r["name"], r["dtype"], r["shape"]) for r in results
+            if r["name"] in SHAPE_CHECKED}
+    print(f"[shapes] {len(seen)} in-model mux and demux shapes, "
+          f"{len(seen & held)} of them held in phase 2")
+    missing = sorted(seen - held, key=str)
+    for key in missing:
+        print(f"[shapes] launched in a phase, not held in phase 2: {key}")
+    if missing:
+        raise SystemExit("[shapes] FAIL: in-model shapes phase 2 never "
+                         "checked")
 
 
 def paged_inputs(torch, gen, dtype, *, b, h, kvh, hd, ps, mp, c,
@@ -451,6 +575,12 @@ def check_paged_kernel(torch, gen):
                         lengths=tmux_lengths), False, None, (1,)),
         ("page 512", dict(slice_kw, ps=512, mp=3, c=1,
                           lengths=[3 * 512 - 7] * 8), False, None, (1,)),
+        # gemma3-4b's global layers under [window]'s chunked prefill: 64
+        # query rows x n_rep 2 over KV heads of 256, 4 slots at 1100-1500
+        # positions of a 2056-position table
+        ("gemma3-4b C64", dict(b=4, h=8, kvh=4, hd=256, ps=16, mp=129,
+                               c=64, lengths=[1137, 1262, 1391, 1500]),
+         True, None, (1,)),
     ]
     results = []
     with torch.no_grad():
@@ -589,6 +719,13 @@ def flash_cases(torch, gen):
     # 256, L 1024) and nemotron-4-340b (96 heads of 192)
     for label, (b, l, h, hd) in (("gemma3-4b", (2, 1024, 8, 256)),
                                  ("nemotron-4-340b", (1, 1024, 96, 192))):
+        q, k, v = (randn(b, l, h, hd) for _ in range(3))
+        cases.append((label, q, k, v, True, None))
+    # the same models' flash calls in the [dense] phase: the prefix of 8
+    # plus the sequence, one group
+    for label, (b, l, h, hd) in (("gemma3-4b eval", (1, 1288, 8, 256)),
+                                 ("gemma-7b eval", (1, 520, 16, 256)),
+                                 ("nemotron-4-340b eval", (1, 264, 96, 192))):
         q, k, v = (randn(b, l, h, hd) for _ in range(3))
         cases.append((label, q, k, v, True, None))
     q = randn(1, 32, 2, 64)
@@ -764,20 +901,60 @@ def run_slice(torch, seed: int):
 # Phase 4: the paged slice
 # ---------------------------------------------------------------------------
 
-def record_teacher_forced(sched, keep: list) -> None:
+def record_teacher_forced(sched, keep: list, pick=None,
+                          every_step: bool = False) -> None:
     """Record (on the host) the logits of every engine step taken before
     any sampled token was emitted — and so before any could be fed back:
     those steps' inputs are prompt tokens only, the same in every run of
-    the trace."""
+    the trace.  ``pick`` keeps a part of each step's logits.
+    ``every_step`` keeps every step's, on the card (for runs whose sampled
+    tokens are replayed, ``Replay``)."""
     inner = sched.engine.step
 
     def step(state, tokens, **kw):
-        forced = sched.stats.generated_tokens == 0
+        forced = every_step or sched.stats.generated_tokens == 0
         logits, state = inner(state, tokens, **kw)
         if forced:
-            keep.append(logits.float().cpu())
+            part = logits if pick is None else pick(logits)
+            f32 = part.float()
+            keep.append((f32.clone() if f32 is part else f32) if every_step
+                        else f32.cpu())
         return logits, state
     sched.engine.step = step
+
+
+def check_forced(tag: str, forced: list, pforced: list) -> None:
+    """Teacher-forced logits of a kernel run against the plain run's: the
+    same number of steps, each within LOGIT_TOL, finite, and greedy tokens
+    equal wherever the plain top-1 margin exceeds twice that tolerance."""
+    if not forced or len(forced) != len(pforced):
+        raise SystemExit(f"{tag} FAIL: teacher-forced steps {len(forced)} "
+                         f"vs {len(pforced)}")
+    worst, clear_n, equal_n, lanes, agree = 0.0, 0, 0, 0, 0
+    for i, (got, ref) in enumerate(zip(forced, pforced)):
+        err = (got - ref).abs().max().item()
+        tol = LOGIT_TOL * ref.abs().max().item()
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+        same = got.argmax(-1) == ref.argmax(-1)
+        worst = max(worst, err / tol if tol else err)   # all lanes idle
+        clear_n += int(clear.sum())
+        equal_n += int(same[clear].sum())
+        live = ref.abs().amax(-1) > 0
+        lanes += int(live.sum())
+        agree += int(same[live].sum())
+        if not (err <= tol and bool(got.isfinite().all())
+                and bool(same[clear].all())):
+            raise SystemExit(f"{tag} FAIL: teacher-forced step {i} "
+                             f"disagrees with the plain path: "
+                             f"max_abs_err {err:.4g} (tol {tol:.4g}), "
+                             f"greedy tokens equal on "
+                             f"{int(same[clear].sum())} of "
+                             f"{int(clear.sum())} clear lanes")
+    print(f"{tag} {len(forced)} teacher-forced steps: logits within "
+          f"{worst:.3f} of LOGIT_TOL, greedy tokens equal on {equal_n} of "
+          f"{clear_n} lanes with a clear margin and on {agree} of {lanes} "
+          f"live lanes")
 
 
 def run_paged_slice(torch, seed: int):
@@ -962,24 +1139,7 @@ def run_wide_chunk(torch, scheduler, variant, paged, trace, n_layers):
         print(f"[paged] prefill_chunk=17 {what}: kernels {a}, plain {b}")
         if a != b:
             raise SystemExit(f"[paged] FAIL: prefill_chunk=17 {what} differ")
-    if not forced or len(forced) != len(pforced):
-        raise SystemExit(f"[paged] FAIL: prefill_chunk=17 teacher-forced "
-                         f"steps {len(forced)} vs {len(pforced)}")
-    for i, (got, ref) in enumerate(zip(forced, pforced)):
-        err = (got - ref).abs().max().item()
-        tol = LOGIT_TOL * ref.abs().max().item()
-        top2 = ref.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
-        same = got.argmax(-1) == ref.argmax(-1)
-        print(f"[paged] prefill_chunk=17 teacher-forced step {i}: logits "
-              f"max_abs_err {err:.4g} (tol {tol:.4g}), greedy tokens equal "
-              f"on {int(same[clear].sum())} of {int(clear.sum())} lanes "
-              f"with a clear margin ({same.float().mean().item():.4f} of "
-              f"all)")
-        if not (err <= tol and bool(torch.isfinite(got).all())
-                and bool(same[clear].all())):
-            raise SystemExit(f"[paged] FAIL: prefill_chunk=17 step {i} "
-                             f"disagrees with the plain path")
+    check_forced("[paged] prefill_chunk=17", forced, pforced)
 
 
 def device_rows(events, steps: int) -> list[tuple[float, str]]:
@@ -994,7 +1154,8 @@ def device_rows(events, steps: int) -> list[tuple[float, str]]:
                    and e.self_device_time_total > 0), reverse=True)
 
 
-def profile_scheduler(torch, sched, trace, warm: int = 12, steps: int = 8):
+def profile_scheduler(torch, sched, trace, warm: int = 12, steps: int = 8,
+                      label: str = "paged scheduler step"):
     """Wall time of a scheduler step in steady state (host clock around
     ``steps`` steps ending in a synchronize), then where one step's device
     time goes (torch.profiler over ``steps`` more)."""
@@ -1019,19 +1180,19 @@ def profile_scheduler(torch, sched, trace, warm: int = 12, steps: int = 8):
     rows = device_rows(events, steps)
     busy = sum(t for t, _ in rows)
     lanes = int(sched.table.lane_mask().sum())
-    print(f"[profile] paged scheduler step ({lanes} live lanes after "
+    print(f"[profile] {label} ({lanes} live lanes after "
           f"{warm + 2 * steps} steps): {wall:.3f} ms wall (unprofiled)")
     if not busy:
-        print("[profile] paged scheduler step: device time not measured "
+        print(f"[profile] {label}: device time not measured "
               "(the profiler saw no device activity)")
         return
-    print(f"[profile] paged scheduler step: device busy {busy:.3f} ms per "
+    print(f"[profile] {label}: device busy {busy:.3f} ms per "
           f"step, idle share {1 - busy / wall:.3f}")
     for t, key in rows[:10]:
         print(f"[profile]   {t:8.4f} ms  {key[:90]}")
     host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count / steps,
                     e.key) for e in events), reverse=True)
-    print("[profile] paged scheduler step: host time per step by op "
+    print(f"[profile] {label}: host time per step by op "
           "(self, profiled):")
     for t, count, key in host[:8]:
         print(f"[profile]   {t:8.4f} ms  x{count:5.0f}  {key[:80]}")
@@ -1644,7 +1805,8 @@ def run_eval(torch, seed: int):
     return launches
 
 
-def profile_eval(torch, step, state, batch, index, wall: float) -> None:
+def profile_eval(torch, step, state, batch, index, wall: float,
+                 label: str = "eval step") -> None:
     """Where one eval step's device time goes (torch.profiler), with the
     flash kernel's share; ``wall`` is the unprofiled step time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1656,15 +1818,383 @@ def profile_eval(torch, step, state, batch, index, wall: float) -> None:
     rows = device_rows(prof.key_averages(), 1)
     busy = sum(t for t, _ in rows)
     if not busy:
-        print("[profile] eval step: device time not measured (the profiler "
-              "saw no device activity)")
+        print(f"[profile] {label}: device time not measured (the "
+              f"profiler saw no device activity)")
         return
     flash = sum(t for t, key in rows if "flash_attention" in key)
-    print(f"[profile] eval step: {wall:.3f} ms wall (unprofiled median), "
+    print(f"[profile] {label}: {wall:.3f} ms wall (unprofiled median), "
           f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
           f"flash_attention {flash:.3f} ms = {flash / busy:.3f} of busy")
     for t, key in rows[:12]:
         print(f"[profile]   {t:9.4f} ms  {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: gemma3-4b's sliding-window layers inside the paged pool
+# ---------------------------------------------------------------------------
+
+def last_row(logits):
+    """A chunked step's last row per lane, (B, N, V); one-token steps'
+    logits as they are."""
+    return logits[..., -1, :] if logits.dim() == 4 else logits
+
+
+class Replay:
+    """Sampling of a plain run that replays a kernel run: each pick returns
+    the token the kernel run chose for that request at that index, so both
+    runs feed the same tokens through every step.  Each pick records the
+    plain path's own greedy token and its top-1 margin."""
+
+    def __init__(self, inner, outputs: dict):
+        self.inner, self.outputs = inner, outputs
+        self.picks: dict[int, list] = {}  # rid -> [(own, replayed, clear)]
+
+    def select(self, req, lane_logits):
+        import numpy as np
+
+        own = self.inner.select(req, lane_logits)
+        x = np.asarray(lane_logits, np.float32)
+        top = np.sort(x)[-2:]
+        clear = top[1] - top[0] > 2 * LOGIT_TOL * np.abs(x).max()
+        tok = self.outputs[req.rid][len(req.output)]
+        self.picks.setdefault(req.rid, []).append((own, tok, bool(clear)))
+        return tok
+
+
+def check_replay(tag: str, replay: Replay) -> None:
+    """Each request's tokens of the kernel run equal the plain path's own
+    greedy picks wherever the plain top-1 margin is clear (above twice
+    LOGIT_TOL x max|logit|); so a plain run left to itself would have given
+    each request's tokens up to its first unclear pick."""
+    clear_n = equal_n = upto = picks = 0
+    for rid, rows in sorted(replay.picks.items()):
+        picks += len(rows)
+        for own, tok, clear in rows:
+            clear_n += clear
+            equal_n += clear and own == tok
+        upto += next((i for i, (_, _, c) in enumerate(rows) if not c),
+                     len(rows))
+        if any(clear and own != tok for own, tok, clear in rows):
+            raise SystemExit(f"{tag} FAIL: request {rid}'s tokens differ "
+                             f"from the plain path's at a clear margin")
+    print(f"{tag} sampled tokens, kernels vs plain (replayed): "
+          f"{equal_n} of {clear_n} picks with a clear margin equal, of "
+          f"{picks} picks; {upto} tokens compared up to each request's "
+          f"first unclear pick")
+
+
+def run_window(torch, seed: int):
+    """gemma3-4b at full width and depth (34 layers: 29 local with a
+    1024-row ring, 5 global), N = 8, bf16, weights from ``seed``, served by
+    ``ContinuousScheduler`` on the paged pool (page_size 16, 4 slots,
+    max_len 2048, prefill_chunk 64) with the mux, both demux and the paged
+    kernels: 14 requests of 1100-1500 prompt tokens (every ring wraps) and
+    32 new tokens each.  The same trace through a contiguous scheduler
+    over a ``with_config`` view with every kernel off, replaying the
+    kernel run's sampled tokens (``Replay``), must give the same decode
+    steps and tokens, every step's logits within LOGIT_TOL and the plain
+    path's own greedy picks equal where the margin is clear.  Before it, a
+    lock-step ``Engine.prefill`` of prompts longer than the rings (through
+    the index-embed demux, which continuous serving never runs: its
+    prompts ramp through decode steps) against the same view.  Returns the
+    launches of the lock-step run and the scheduler's run, summed."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import Backbone
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kvcache import cache_nbytes, paged_cache_bytes
+    from repro_torch.serving.scheduler import ContinuousScheduler, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch, max_len, chunk, n_requests, gen_len = 4, 2048, 64, 14, 32
+    base = get_config("gemma3-4b", mux_n=8)
+    cfg = dataclasses.replace(
+        base, mux=dataclasses.replace(base.mux, use_kernel=True),
+        serving=ServingConfig(paged=True, page_size=16, use_kernel=True,
+                              fuse_demux=True, prefill_chunk=chunk))
+    kinds = cfg.layer_kinds()
+    rng = np.random.default_rng(seed)
+    trace = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, int(rng.integers(1100, 1501))).astype(np.int32),
+        max_new_tokens=gen_len, arrival=3 * i) for i in range(n_requests)]
+    lens = [len(r.prompt) for r in trace]
+    n_global = sum(k["window"] is None for k in kinds)
+    print(f"[window] {cfg.name}: {cfg.n_layers} layers "
+          f"({cfg.n_layers - n_global} local, window {cfg.window}; "
+          f"{n_global} global), "
+          f"d={cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim_} over "
+          f"{cfg.n_kv_heads} KV heads, vocab {cfg.vocab}, N={cfg.mux.n}, "
+          f"{cfg.dtype}; batch {batch}, max_len {max_len}, page_size 16, "
+          f"prefill_chunk {chunk}; {n_requests} requests, prompts "
+          f"{min(lens)}-{max(lens)} tokens, {gen_len} new tokens each, "
+          f"arrivals every 3 steps")
+    torch.cuda.reset_peak_memory_stats()
+    model = Backbone(cfg, seed=seed, device="cuda").eval()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    plain = model.with_config(dataclasses.replace(
+        base, serving=ServingConfig(prefill_chunk=chunk)))
+
+    # Lock-step: Engine.prefill of 1200-token prompts (the local layers'
+    # rings keep the last 1024 positions) through the index-embed demux,
+    # then one decode step, kernels on against the plain view.
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab, (2, cfg.mux.n, 1200),
+                            generator=gen, device="cuda")
+    lock = {}
+    for label, m in (("kernels", model), ("plain", plain)):
+        eng = Engine(m, batch=2, max_len=prompts.shape[-1] + 2)
+        _build.LAUNCHES.clear()
+        logits0, state = eng.prefill(prompts)
+        first = logits0.argmax(-1) if label == "kernels" else first
+        logits1, _ = eng.step(state, first)
+        torch.cuda.synchronize()
+        lock[label] = (logits0.float(), logits1.float(),
+                       dict(_build.LAUNCHES))
+    want = {"index_embed_demux": 1, "hadamard_mux": 2, "decode_demux": 1}
+    print(f"[window] lock-step prefill of (2, 8, 1200) prompts and one "
+          f"step: launches {lock['kernels'][2]}, plain {lock['plain'][2]}")
+    if lock["kernels"][2] != want or lock["plain"][2]:
+        raise SystemExit(f"[window] FAIL: lock-step launches, expected "
+                         f"{want}")
+    lock_launches = lock["kernels"][2]
+    for i, what in enumerate(("prefill", "first step")):
+        got, ref = lock["kernels"][i], lock["plain"][i]
+        err = (got - ref).abs().max().item()
+        tol = LOGIT_TOL * ref.abs().max().item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        print(f"[window] lock-step {what} logits, kernels vs plain: "
+              f"max_abs_err {err:.4g} (tol {tol:.4g}), greedy tokens agree "
+              f"{agree:.4f}")
+        if not (err <= tol and bool(got.isfinite().all())):
+            raise SystemExit(f"[window] FAIL: lock-step {what} logits "
+                             f"disagree")
+    del lock, state, eng
+
+    def scheduler(m):
+        return ContinuousScheduler(Engine(m, batch=batch, max_len=max_len))
+
+    warm = [dataclasses.replace(r, prompt=r.prompt[:200], max_new_tokens=2,
+                                arrival=0) for r in trace[:2]]
+    scheduler(model).run([r.fresh() for r in warm])          # warm-up
+    torch.cuda.synchronize()
+
+    _build.LAUNCHES.clear()
+    sched = scheduler(model)
+    forced = []
+    record_teacher_forced(sched, forced, pick=last_row, every_step=True)
+    t0 = time.perf_counter()
+    stats = sched.run([r.fresh() for r in trace])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    alloc = sched.allocator
+    paged = ["k_pages" in layer for layer in alloc.cache]
+    pool = alloc.page_bytes() * alloc.pool_pages
+    rings = alloc.ring_bytes()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kept_gb = sum(t.numel() * t.element_size() for t in forced) / 1e9
+    print(f"[window] layer split the allocator chose: {sum(paged)} global "
+          f"layers paged ({alloc.pool_pages} pages of 16), "
+          f"{paged.count(False)} local layers in rings of "
+          f"{alloc.cache[paged.index(False)]['k'].shape[1]} rows x {batch} "
+          f"slots; pool {pool / 1e6:.2f} MB, rings {rings / 1e6:.2f} MB, "
+          f"weights {weights / 1e9:.3f} GB, peak memory {peak_gb:.2f} GB, "
+          f"of which {kept_gb:.2f} GB are every step's logits kept for the "
+          f"comparison ({torch.cuda.get_device_name(0)})")
+    print(f"[window] {stats.finished}/{n_requests} requests, "
+          f"{stats.decode_steps} decode steps, {stats.generated_tokens} "
+          f"tokens in {dt:.4f} s = {stats.generated_tokens / dt:.1f} tok/s, "
+          f"{dt / stats.decode_steps * 1e3:.3f} ms per step (bf16); peak "
+          f"{stats.peak_pages}/{alloc.table.usable_pages} pages, "
+          f"{stats.slot_resets} slot resets")
+    print(f"[window] kernel launches in that run: {launches}")
+    want_split = [k["window"] is None for k in kinds]
+    if paged != want_split or n_global != 5:
+        raise SystemExit(f"[window] FAIL: layer split {paged}")
+    if cache_nbytes(alloc.cache) != paged_cache_bytes(
+            cfg, batch, alloc.max_len, pool_pages=alloc.pool_pages,
+            page_size=16) or pool + rings != cache_nbytes(alloc.cache):
+        raise SystemExit("[window] FAIL: the cache's bytes disagree with "
+                         "paged_cache_bytes")
+    if min(lens) + cfg.mux.prefix_len <= cfg.window:
+        raise SystemExit("[window] FAIL: a prompt leaves its rings unwrapped")
+    if stats.finished != n_requests:
+        raise SystemExit("[window] FAIL: not every request finished")
+    if alloc.table.pages_in_use != alloc.n_prefix_pages * batch:
+        raise SystemExit("[window] FAIL: pages leaked after the drain")
+    if launches.get("paged_decode_attention", 0) != \
+            n_global * stats.decode_steps:
+        raise SystemExit(f"[window] FAIL: paged_decode_attention launched "
+                         f"{launches.get('paged_decode_attention', 0)} "
+                         f"times, expected {n_global * stats.decode_steps}")
+    for name in ("hadamard_mux", "decode_demux"):
+        if not launches.get(name):
+            raise SystemExit(f"[window] FAIL: {name} never launched")
+
+    # The plain run replays the kernel run's sampled tokens, so every step,
+    # the chunked ones that read wrapped rings included, is teacher-forced.
+    psched = scheduler(plain)
+    psched.sampling = Replay(psched.sampling,
+                             {q.rid: list(q.output) for q in sched.finished})
+    pforced = []
+    record_teacher_forced(psched, pforced, pick=last_row, every_step=True)
+    _build.LAUNCHES.clear()
+    pstats = psched.run([r.fresh() for r in trace])
+    torch.cuda.synchronize()
+    if _build.LAUNCHES:
+        raise SystemExit(f"[window] FAIL: the plain path launched "
+                         f"{dict(_build.LAUNCHES)}")
+    for what in ("finished", "decode_steps", "generated_tokens"):
+        a, b = getattr(stats, what), getattr(pstats, what)
+        print(f"[window] {what}: paged kernels {a}, contiguous plain {b}")
+        if a != b:
+            raise SystemExit(f"[window] FAIL: {what} differ")
+    check_forced("[window]", forced, pforced)
+    check_replay("[window]", psched.sampling)
+    del forced, pforced, psched, sched
+    gc.collect()
+    profile_scheduler(torch, scheduler(model), trace, warm=6, steps=4,
+                      label="window scheduler step")
+    for name, count in lock_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: evaluation through flash at head dims 256 and 192
+# ---------------------------------------------------------------------------
+
+DENSE_EVAL = (  # (arch, layers or None for all, sequence length)
+    ("gemma3-4b", None, 1280),
+    ("gemma-7b", 4, 512),
+    ("nemotron-4-340b", 2, 256),
+)
+
+
+def run_dense(torch, seed: int):
+    """Each of gemma3-4b (all 34 layers, L 1280 past its window), gemma-7b
+    (4 of 28 layers) and nemotron-4-340b (2 of 96) at full width, N = 8,
+    bf16, weights from ``seed``, evaluated on one batch of the retrieval
+    task (B 1) through ``Trainer.make_eval_step`` with
+    ``Backbone(use_flash=True)`` and the mux and demux kernels: flash runs
+    on the global layers only; a ``with_config`` view on the same weights
+    with flash and the kernels off must give logits within LOGIT_TOL and
+    losses within EVAL_LOSS_TOL; eval-step times on and off in turns; peak
+    memory under 70 GB."""
+    import gc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.retrieval import retrieval_index
+    from repro_torch.data import RetrievalTask, mux_batches
+    from repro_torch.kernels import _build
+    from repro_torch.models import Backbone
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    tcfg = TrainConfig(task="lm")
+    total = {}
+    for arch, layers, seq_len in DENSE_EVAL:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = get_config(arch, mux_n=8)
+        reduced = []
+        if layers:
+            reduced.append(f"{layers} of {base.n_layers} layers")
+            base = dataclasses.replace(base, n_layers=layers)
+        reduced.append("batch 1 group")
+        cfg = dataclasses.replace(
+            base, mux=dataclasses.replace(base.mux, use_kernel=True))
+        n = cfg.mux.n
+        n_global = sum(k["window"] is None for k in cfg.layer_kinds())
+        model = Backbone(cfg, seed=seed, device="cuda", use_flash=True).eval()
+        weights = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        print(f"[dense] {cfg.name}: {cfg.n_layers} layers ({n_global} "
+              f"through flash), d={cfg.d_model}, {cfg.n_heads} heads of "
+              f"{cfg.head_dim_} over {cfg.n_kv_heads} KV heads, "
+              f"{cfg.norm}, {cfg.activation}, vocab {cfg.vocab}, N={n}, "
+              f"{cfg.dtype}, {weights / 1e9:.2f} GB of weights; one batch "
+              f"of RetrievalTask(seq_len={seq_len}); reduced: "
+              f"{', '.join(reduced)}")
+        state = {"model": model}
+        plain = {"model": model.with_config(base, use_flash=False)}
+        batch = {k: torch.as_tensor(v).long().cuda() for k, v in next(iter(
+            mux_batches(RetrievalTask(vocab=cfg.vocab, seq_len=seq_len),
+                        groups=1, n_mux=n, steps=1, seed=seed))).items()}
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        index = retrieval_index(gen, 1, n, seq_len)
+        step = Trainer.make_eval_step(cfg, tcfg)
+        plain_step = Trainer.make_eval_step(base, tcfg)
+        step(state, batch, None, retr_index=index)           # warm-up
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        metrics = step(state, batch, None, retr_index=index)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        want = {"flash_attention": n_global, "hadamard_mux": 1,
+                "index_embed_demux": 1}
+        print(f"[dense] {cfg.name} kernel launches in one eval step: "
+              f"{launches}")
+        if launches != want:
+            raise SystemExit(f"[dense] FAIL: launches {launches}, expected "
+                             f"{want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        _build.LAUNCHES.clear()
+        plain_metrics = plain_step(plain, batch, None, retr_index=index)
+        with torch.inference_mode():
+            plain_logits = plain["model"](batch["tokens"])["logits"]
+        torch.cuda.synchronize()
+        if _build.LAUNCHES:
+            raise SystemExit(f"[dense] FAIL: the plain path launched "
+                             f"{dict(_build.LAUNCHES)}")
+        with torch.inference_mode():
+            logits = model(batch["tokens"])["logits"]
+        err = max((logits[:, i].float() - plain_logits[:, i].float())
+                  .abs().max().item() for i in range(n))
+        tol = LOGIT_TOL * plain_logits.abs().max().item()
+        agree = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
+        finite = bool(logits.isfinite().all())
+        print(f"[dense] {cfg.name} logits {tuple(logits.shape)}, flash + "
+              f"kernels vs plain: max_abs_err {err:.4g} (tol {tol:.4g}), "
+              f"greedy tokens agree {agree.item():.4f}")
+        if not (err <= tol and finite):
+            raise SystemExit(f"[dense] FAIL: {cfg.name} logits disagree")
+        del logits, plain_logits
+        for key in ("task_loss", "retr_loss"):
+            got, ref = float(metrics[key]), float(plain_metrics[key])
+            rel = abs(got - ref) / abs(ref)
+            print(f"[dense] {cfg.name} {key}: flash + kernels {got:.6g}, "
+                  f"plain {ref:.6g}, relative diff {rel:.3g} "
+                  f"(tol {EVAL_LOSS_TOL})")
+            if not rel <= EVAL_LOSS_TOL:
+                raise SystemExit(f"[dense] FAIL: {cfg.name} {key} disagrees")
+        walls = {"flash + kernels": [], "plain": []}
+        runs = {"flash + kernels": (step, state), "plain": (plain_step,
+                                                           plain)}
+        for label in ("flash + kernels", "plain") * 2:     # in turns
+            fn, st = runs[label]
+            walls[label].append(eval_step_ms(torch, fn, st, [batch],
+                                             [index]))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[dense] {cfg.name} eval step wall ms (in turns): "
+              + ", ".join(f"{label} {[round(t, 3) for t in w]}"
+                          for label, w in walls.items())
+              + f"; peak memory {peak_gb:.2f} GB")
+        if not peak_gb < 70:
+            raise SystemExit(f"[dense] FAIL: {cfg.name} peak memory "
+                             f"{peak_gb:.2f} GB")
+        profile_eval(torch, step, state, batch, index,
+                     statistics.median(walls["flash + kernels"]),
+                     label=f"{cfg.name} eval step")
+        del state, plain, model, step, plain_step
+    return total
 
 
 def main(argv=None) -> int:
@@ -1696,22 +2226,27 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     results = (check_kernels(torch, gen) + check_paged_kernel(torch, gen)
                + check_flash_kernel(torch, gen))
-    launches = run_slice(torch, args.seed)
-    launches["paged_decode_attention"] = run_paged_slice(
-        torch, args.seed)["paged_decode_attention"]
-    launches["flash_attention"] = run_eval(torch, args.seed)[
-        "flash_attention"]
-    run_router(torch, args.seed)
-    run_train(torch, args.seed)
+    seen = record_shapes()
+    by_phase = {"slice": run_slice(torch, args.seed),
+                "paged": run_paged_slice(torch, args.seed),
+                "eval": run_eval(torch, args.seed),
+                "router": run_router(torch, args.seed),
+                "train": run_train(torch, args.seed),
+                "window": run_window(torch, args.seed),
+                "dense": run_dense(torch, args.seed)}
+    check_shapes(seen, results)
+    launches = dict(by_phase["slice"])
+    launches["paged_decode_attention"] = by_phase["paged"][
+        "paged_decode_attention"]
+    launches["flash_attention"] = by_phase["eval"]["flash_attention"]
 
     # One entry per kernel, at the bf16 shape its slice runs most often
     # (L = 1 prefill demux, C = 1 decode demux, L = 1 decode-step mux, the
     # paged slice's C = 1 decode with kblock_pages = 1, the evaluation
     # slice's causal flash attention); launches come from the lock-step
-    # slice for the mux and demux kernels (the mux and the decode demux
-    # count again in the paged slice, the mux and the index-embed demux in
-    # the evaluation slice), from the paged slice for the paged attention
-    # and from the evaluation slice for the flash attention.
+    # slice for the mux and demux kernels, from the paged slice for the
+    # paged attention and from the evaluation slice for the flash
+    # attention; ``launches_by_phase`` has every phase's count.
     entries = []
     for name in SOURCES:
         if name == "paged_decode_attention":
@@ -1732,7 +2267,9 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms"),
-            shape=r["shape"]))
+            shape=r["shape"], launches_by_phase={
+                phase: counts.get(name, 0)
+                for phase, counts in by_phase.items()}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

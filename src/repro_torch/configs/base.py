@@ -161,6 +161,8 @@ class ModelConfig:
     vocab: int
     cite: str = ""
     head_dim: int = 0                # 0 -> d_model // n_heads
+    window: int | None = None        # sliding window of the local layers
+    global_every: int = 0            # every k-th layer is global (0: none)
     norm: str = "rmsnorm"
     activation: str = "silu"
     gated_mlp: bool = True
@@ -223,22 +225,31 @@ class ModelConfig:
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
 
-    def attn_config(self, *, use_flash: bool = False) -> AttnConfig:
+    def attn_config(self, *, window: int | None = None,
+                    use_flash: bool = False) -> AttnConfig:
         return AttnConfig(
             dim=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim_,
             qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
-            causal=self.causal, use_flash=use_flash,
+            causal=self.causal, window=window, use_flash=use_flash,
             paged_kernel=self.serving.use_kernel,
             kblock_pages=self.serving.kblock_pages)
 
     def layer_kinds(self) -> list[dict]:
-        """Static per-layer structure.  Dense family: every layer is full
-        attention (no window), followed by a dense MLP when ``d_ff`` is
-        set."""
+        """Static per-layer structure.  Dense family: every layer is
+        attention followed by a dense MLP when ``d_ff`` is set; with a
+        ``window``, layer i is global (no window) iff ``global_every`` and
+        ``(i + 1) % global_every == 0``, and local (``window``) otherwise,
+        as in the reference."""
         mlp = "dense" if self.d_ff else None
-        return [dict(mixer="attn", mlp=mlp, window=None)
-                for _ in range(self.n_layers)]
+        kinds = []
+        for i in range(self.n_layers):
+            window = None
+            if self.window is not None and not (
+                    self.global_every and (i + 1) % self.global_every == 0):
+                window = self.window
+            kinds.append(dict(mixer="attn", mlp=mlp, window=window))
+        return kinds
 
     def layer_pattern(self) -> tuple[int, int, int]:
         """(head_len, period, n_groups) of the reference's layer stack:

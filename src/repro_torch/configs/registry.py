@@ -1,17 +1,22 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke variants.
 
-The port registers the archs its dense backbone runs: the paper's T-MUX
-(three sizes) and qwen1.5-4b.  The smoke rules are the reference's
+The port registers the archs of the dense family: the paper's T-MUX
+(three sizes), qwen1.5-4b, gemma-7b, gemma3-4b (sliding-window local
+layers) and nemotron-4-340b.  The smoke rules are the reference's
 (``repro.configs.registry.get_smoke_config``) for these archs.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import qwen1_5_4b, tmux_12l_768h
+from repro_torch.configs import (gemma3_4b, gemma_7b, nemotron_4_340b,
+                                 qwen1_5_4b, tmux_12l_768h)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
+    "gemma-7b": gemma_7b.CONFIG,
+    "gemma3-4b": gemma3_4b.CONFIG,
+    "nemotron-4-340b": nemotron_4_340b.CONFIG,
     "qwen1.5-4b": qwen1_5_4b.CONFIG,
     "tmux-12l-768h": tmux_12l_768h.CONFIG,
     "tmux-12l-384h": tmux_12l_768h.CONFIG_12L_384H,
@@ -35,14 +40,17 @@ def get_config(arch: str, *, mux_n: int | None = None,
 
 def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
     """Reduced same-family variant: 4 layers, d_model <= 256, 4 heads,
-    vocab 512, float32."""
+    vocab 512, float32; a windowed arch keeps window 16 with every 2nd
+    layer global."""
     cfg = get_config(arch)
     d = min(cfg.d_model, 256)
     heads = 4
     kv = min(cfg.n_kv_heads, heads)
     kv = heads // max(1, heads // kv)  # keep divisibility
+    window = {"window": 16, "global_every": 2} if cfg.global_every else {}
     return dataclasses.replace(
         cfg,
+        **window,
         name=cfg.name + "-smoke",
         n_layers=4,
         d_model=d,

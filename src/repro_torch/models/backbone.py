@@ -24,14 +24,15 @@ from repro_torch.nn.layers import MLP, Embedding, Linear, make_norm
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                dtype=None, page_pool=None) -> list[dict]:
-    """One K/V cache per layer: contiguous, ``max_len`` rows per slot; or,
-    with ``page_pool`` = (pool_pages, page_size), a page pool shared by
-    every slot (see ``serving/paging.py``) for each layer that
-    ``paged_eligible`` admits."""
+    """One K/V cache per layer: contiguous, ``max_len`` rows per slot (a
+    windowed layer: its ring of ``min(window, max_len)`` rows); or, with
+    ``page_pool`` = (pool_pages, page_size), a page pool shared by every
+    slot (see ``serving/paging.py``) for each layer that ``paged_eligible``
+    admits, the others keeping their contiguous caches."""
     dtype = dtype or cfg.compute_dtype
-    acfg = cfg.attn_config()
     caches = []
     for kind in cfg.layer_kinds():
+        acfg = cfg.attn_config(window=kind["window"])
         if page_pool is not None and paged_eligible(kind["window"], max_len):
             caches.append(Attention.init_paged_cache(acfg, *page_pool, dtype,
                                                      device))
@@ -49,7 +50,8 @@ class Block(nn.Module):
         super().__init__()
         norm = make_norm(cfg.norm)
         self.norm1 = norm(cfg.d_model, device=device, dtype=dtype)
-        self.attn = Attention(cfg.attn_config(use_flash=use_flash),
+        self.attn = Attention(cfg.attn_config(window=kind["window"],
+                                              use_flash=use_flash),
                               generator=generator, device=device,
                               dtype=dtype)
         self.norm2 = self.mlp = None
@@ -84,8 +86,8 @@ class Backbone(nn.Module):
     ``device`` (the GPU unless the caller asks for another device).
     ``use_flash`` routes each layer's cache-free causal attention through
     the flash kernel (``cfg.attn_config(use_flash=True)``); prefill and
-    decode, which write a cache, and bidirectional attention are
-    unaffected."""
+    decode, which write a cache, bidirectional attention and windowed
+    (local) layers are unaffected."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
                  use_flash: bool = False):
@@ -148,13 +150,15 @@ class Backbone(nn.Module):
                                                         width)
         return out
 
-    def with_config(self, cfg: ModelConfig) -> "Backbone":
+    def with_config(self, cfg: ModelConfig, *,
+                    use_flash: bool | None = None) -> "Backbone":
         """This model under ``cfg``: every parameter shared, none copied.
         ``cfg`` may differ from this model's config only in ``serving`` and
         ``mux.use_kernel`` (a replica's serving stack; the kernels on or
         off); any other change raises, since it would shape the weights or
         change the function they compute.  Each layer's attention takes
-        ``cfg``'s paged-kernel settings."""
+        ``cfg``'s paged-kernel settings, and ``use_flash`` (None: this
+        model's)."""
         same = dataclasses.replace(
             cfg, serving=self.cfg.serving,
             mux=dataclasses.replace(cfg.mux,
@@ -166,12 +170,14 @@ class Backbone(nn.Module):
                              f"serving and mux.use_kernel; {changed} differ")
         out = Backbone.__new__(Backbone)
         nn.Module.__init__(out)
-        out.cfg, out.use_flash = cfg, self.use_flash
+        out.cfg = cfg
+        out.use_flash = self.use_flash if use_flash is None else use_flash
         out.embed, out.final_norm = self.embed, self.final_norm
         out.lm_head, out.mux, out.demux = self.lm_head, self.mux, self.demux
-        acfg = cfg.attn_config(use_flash=self.use_flash)
-        out.layers = nn.ModuleList(b.with_attn_config(acfg)
-                                   for b in self.layers)
+        out.layers = nn.ModuleList(
+            b.with_attn_config(cfg.attn_config(window=kind["window"],
+                                               use_flash=out.use_flash))
+            for b, kind in zip(self.layers, cfg.layer_kinds()))
         return out
 
     # -- pieces ---------------------------------------------------------------------

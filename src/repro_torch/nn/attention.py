@@ -4,9 +4,12 @@ reference's ``Attention`` class (``repro.nn.attention``).
 Modes, chosen by the arguments as in the reference:
 
   * full sequence (training / forward):   ``cache is None``; with
-                ``use_flash`` and ``causal`` through the flash kernel
+                ``use_flash``, ``causal`` and no window through the flash
+                kernel
   * prefill:    a cache is given and L > 1 — full attention over x, and
-                K/V/positions written to cache rows [0, L)
+                K/V/positions written to the cache: rows [0, L), or, when
+                L exceeds a window ring, the last ``slots`` positions at
+                row ``p % slots``
   * decode:     a cache is given and L == 1 — K/V written at
                 ``cache_index`` (a scalar, or a (B,) vector of per-slot
                 positions), then attention over the cache
@@ -21,6 +24,10 @@ Conventions kept from the reference: RoPE rotates split halves; query head
 ``NEG_INF`` (not ``-inf``, so a row with no valid key is a finite uniform
 average), softmax runs in float32 and the probabilities are cast to V's
 dtype before the PV product.
+
+A layer with a sliding ``window`` masks keys at ``q_pos - k_pos >=
+window`` and keeps a ring of ``min(window, max_len)`` cache rows, position
+p at row ``p % slots``.
 
 Caches are dicts of tensors {"k", "v": (B, S, KVH, hd), "pos": (B, S)
 int32, -1 = unwritten}, or page pools {"k_pages", "v_pages": (P, ps, KVH,
@@ -54,8 +61,9 @@ class AttnConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     causal: bool = True
-    use_flash: bool = False     # cache-free causal attention through the
-                                # flash kernel
+    window: int | None = None   # sliding-window size; None = full attention
+    use_flash: bool = False     # cache-free causal full attention through
+                                # the flash kernel
     paged_kernel: bool = False  # paged decode: CUDA kernel vs plain gather
     kblock_pages: int = 1       # pages the paged kernel stages at a time
     softmax_scale: float | None = None
@@ -64,6 +72,12 @@ class AttnConfig:
     def scale(self) -> float:
         return self.softmax_scale if self.softmax_scale is not None \
             else self.head_dim ** -0.5
+
+
+def cache_rows(window: int | None, max_len: int) -> int:
+    """Rows of a layer's contiguous decode cache: a windowed layer keeps a
+    ring of ``min(window, max_len)`` rows, any other ``max_len``."""
+    return min(window, max_len) if window else max_len
 
 
 def paged_eligible(window: int | None, max_len: int) -> bool:
@@ -116,7 +130,8 @@ def dot_product_attention(q, k, v, mask, scale: float):
 
 
 def chunked_dot_product_attention(q, k, v, q_pos, k_pos, scale: float, *,
-                                  causal: bool, chunk: int = CHUNK_SIZE):
+                                  causal: bool, window: int | None = None,
+                                  chunk: int = CHUNK_SIZE):
     """Online-softmax attention over KV chunks with a running (max, sum,
     acc) — O(Lq·chunk) live scores instead of O(Lq·Lk).
 
@@ -134,9 +149,13 @@ def chunked_dot_product_attention(q, k, v, q_pos, k_pos, scale: float, *,
         vb = v[:, start:start + chunk].float()
         pb = k_pos[:, start:start + chunk]
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kb) * scale
+        diff = q_pos[:, None, :, None] - pb[:, None, None, :]
+        keep = torch.ones_like(diff, dtype=torch.bool)
         if causal:
-            keep = (q_pos[:, None, :, None] - pb[:, None, None, :]) >= 0
-            s = s.masked_fill(~keep, NEG_INF)
+            keep = keep & (diff >= 0)
+        if window is not None:
+            keep = keep & (diff < window)
+        s = s.masked_fill(~keep, NEG_INF)
         m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m_run - m_new)
         p = torch.exp(s - m_new)
@@ -164,13 +183,17 @@ def masked_chunk_write(cache, idx, row_ok, values: dict, pos_q) -> None:
                                           cache["pos"][rows, idx])
 
 
-def make_attention_mask(q_pos, k_pos, *, causal: bool, k_valid=None):
+def make_attention_mask(q_pos, k_pos, *, causal: bool,
+                        window: int | None = None, k_valid=None):
     """Boolean (B, 1, Lq, Lk) mask from query/key positions.
-    q_pos: (B, Lq); k_pos: (B, Lk); k_valid: optional (B, Lk) bool."""
-    m = torch.ones((q_pos.shape[0], q_pos.shape[1], k_pos.shape[1]),
-                   dtype=torch.bool, device=q_pos.device)
+    q_pos: (B, Lq); k_pos: (B, Lk); k_valid: optional (B, Lk) bool (ring
+    rows not written yet)."""
+    diff = q_pos[:, :, None] - k_pos[:, None, :]
+    m = torch.ones(diff.shape, dtype=torch.bool, device=q_pos.device)
     if causal:
-        m = m & ((q_pos[:, :, None] - k_pos[:, None, :]) >= 0)
+        m = m & (diff >= 0)
+    if window is not None:
+        m = m & (diff < window)
     if k_valid is not None:
         m = m & k_valid[:, None, :]
     return m[:, None]
@@ -181,8 +204,10 @@ def _attend(q, k, v, positions, cfg: AttnConfig, n_rep: int):
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     if q.shape[1] >= CHUNKED_ATTN_THRESHOLD:
         return chunked_dot_product_attention(
-            q, k, v, positions, positions, cfg.scale, causal=cfg.causal)
-    mask = make_attention_mask(positions, positions, causal=cfg.causal)
+            q, k, v, positions, positions, cfg.scale, causal=cfg.causal,
+            window=cfg.window)
+    mask = make_attention_mask(positions, positions, causal=cfg.causal,
+                               window=cfg.window)
     return dot_product_attention(q, k, v, mask, cfg.scale)
 
 
@@ -191,7 +216,7 @@ def _attend(q, k, v, positions, cfg: AttnConfig, n_rep: int):
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
-    """GQA/MQA/MHA with RoPE."""
+    """GQA/MQA/MHA with RoPE and an optional sliding window."""
 
     def __init__(self, cfg: AttnConfig, *, generator=None, device=None,
                  dtype=torch.float32):
@@ -223,11 +248,14 @@ class Attention(nn.Module):
     @staticmethod
     def init_cache(cfg: AttnConfig, batch: int, max_len: int,
                    dtype=torch.bfloat16, device=None) -> dict:
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        """A ring of ``min(window, max_len)`` rows for a windowed layer,
+        else ``max_len`` rows."""
+        slots = cache_rows(cfg.window, max_len)
+        shape = (batch, slots, cfg.n_kv_heads, cfg.head_dim)
         return {
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+            "pos": torch.full((batch, slots), -1, dtype=torch.int32,
                               device=device),
         }
 
@@ -261,10 +289,11 @@ class Attention(nn.Module):
         k = apply_rope(k, positions, cfg.rope_theta)
         n_rep = cfg.n_heads // cfg.n_kv_heads
 
-        if cache is None and cfg.use_flash and cfg.causal:
-            # As in the reference: only the cache-free causal branch, and
-            # before the chunked one; bidirectional attention never goes
-            # to the flash kernel.
+        if cache is None and cfg.use_flash and cfg.causal and \
+                cfg.window is None:
+            # As in the reference: only the cache-free causal branch without
+            # a window, and before the chunked one; bidirectional and
+            # windowed attention never go to the flash kernel.
             from repro_torch.kernels.attention import ops as flash_ops
             out = flash_ops.flash_attention(
                 q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), causal=True,
@@ -278,21 +307,34 @@ class Attention(nn.Module):
             out = self._paged_decode(q, k, v, positions, cache, cache_index,
                                      block_table)
         elif l > 1:
-            # Prefill: full attention over x, and rows [0, L) of the cache
-            # filled (in place).
-            if l > cache["k"].shape[1]:
-                raise ValueError(
-                    f"prefill of {l} positions exceeds the cache's "
-                    f"{cache['k'].shape[1]} rows")
-            cache["k"][:, :l] = k.to(cache["k"].dtype)
-            cache["v"][:, :l] = v.to(cache["v"].dtype)
-            cache["pos"][:, :l] = positions.to(torch.int32)
+            self._prefill_write(k, v, positions, cache, cfg.window)
             out = _attend(q, k, v, positions, cfg, n_rep)
         else:
             out = self._decode(q, k, v, positions, cache, cache_index, n_rep)
 
         out = out.reshape(b, l, cfg.n_heads * cfg.head_dim)
         return self.wo(out), cache
+
+    @staticmethod
+    def _prefill_write(k, v, positions, cache, window) -> None:
+        """Prefill's cache write, in place: the last ``min(L, slots)``
+        positions, position p at row ``p % slots`` as decode addresses it
+        — all L rows when they fit, the last ``slots`` when a window ring
+        is shorter than the prompt.  A cache that holds fewer rows than
+        the layer attends to (every position without a window) raises on
+        a prompt longer than it."""
+        b, l = positions.shape
+        slots = cache["k"].shape[1]
+        if l > slots and (window is None or window > slots):
+            raise ValueError(f"prefill of {l} positions exceeds the cache's "
+                             f"{slots} rows")
+        keep = min(l, slots)
+        pos = torch.broadcast_to(positions, (b, l))[:, l - keep:] \
+            .to(torch.int32)
+        rows = (pos[0] % slots).long()
+        cache["k"][:, rows] = k[:, l - keep:].to(cache["k"].dtype)
+        cache["v"][:, rows] = v[:, l - keep:].to(cache["v"].dtype)
+        cache["pos"][:, rows] = pos
 
     def _decode(self, q, k, v, positions, cache, cache_index, n_rep):
         """Single-token decode: write this token's K/V at ``cache_index``
@@ -318,7 +360,7 @@ class Attention(nn.Module):
             cache["pos"].index_copy_(1, slot, pos_q)
         pos = cache["pos"]
         mask = make_attention_mask(pos_q, pos, causal=self.cfg.causal,
-                                   k_valid=pos >= 0)
+                                   window=self.cfg.window, k_valid=pos >= 0)
         return dot_product_attention(
             q, _repeat_kv(cache["k"].to(q.dtype), n_rep),
             _repeat_kv(cache["v"].to(q.dtype), n_rep), mask, self.cfg.scale)
@@ -328,7 +370,7 @@ class Attention(nn.Module):
         cfg = self.cfg
         return paged_ops.paged_attention(
             q, cache["k_pages"], cache["v_pages"], cache["pos"], block_table,
-            pos_q, scale=cfg.scale, causal=cfg.causal,
+            pos_q, scale=cfg.scale, causal=cfg.causal, window=cfg.window,
             use_kernel=cfg.paged_kernel, kblock_pages=cfg.kblock_pages)
 
     def _paged_decode(self, q, k, v, positions, cache, cache_index,
@@ -395,11 +437,30 @@ class Attention(nn.Module):
             return self._paged_attend(q, cache, block_table, pos_q)
 
         slots = cache["k"].shape[1]
+        window = self.cfg.window
+        if window is not None:
+            # Ring semantics: all C writes land before the attention runs,
+            # so a later chunk row's write can evict an in-window key that
+            # an earlier row still needs.  Attend over the pre-write ring
+            # plus the chunk itself (as the reference does): the keys a row
+            # i needs are never among those rows <= i overwrite, and chunk
+            # positions are disjoint from the old ring's, so each position
+            # counts once — bitwise the C sequential steps.  The chunk's
+            # K/V round-trip through the cache dtype, as stored keys would.
+            k_att = torch.cat([cache["k"], k.to(cache["k"].dtype)],
+                              dim=1).to(q.dtype)
+            v_att = torch.cat([cache["v"], v.to(cache["v"].dtype)],
+                              dim=1).to(q.dtype)
+            pos_att = torch.cat([cache["pos"],
+                                 torch.where(row_ok, pos_q, -1)], dim=1)
         masked_chunk_write(cache, pos_q.long() % slots, row_ok,
                            {"k": k, "v": v}, pos_q)
-        pos = cache["pos"]
-        mask = make_attention_mask(pos_q, pos, causal=self.cfg.causal,
-                                   k_valid=pos >= 0)
+        if window is None:
+            k_att = cache["k"].to(q.dtype)
+            v_att = cache["v"].to(q.dtype)
+            pos_att = cache["pos"]
+        mask = make_attention_mask(pos_q, pos_att, causal=self.cfg.causal,
+                                   window=window, k_valid=pos_att >= 0)
         return dot_product_attention(
-            q, _repeat_kv(cache["k"].to(q.dtype), n_rep),
-            _repeat_kv(cache["v"].to(q.dtype), n_rep), mask, self.cfg.scale)
+            q, _repeat_kv(k_att, n_rep), _repeat_kv(v_att, n_rep), mask,
+            self.cfg.scale)

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import Backbone
+from repro_torch.nn.attention import cache_rows
 from repro_torch.serving.telemetry import NULL_TRACER
 
 
@@ -52,12 +53,14 @@ class Engine:
         # ``set_tracer`` rebinds it.
         self.tracer = NULL_TRACER
         chunk = self.cfg.serving.prefill_chunk
-        if chunk > self.max_len:
-            # C distinct cache rows per chunk (the dense family has no
-            # window rings, so the cache itself is the smallest ring).
+        # A chunk writes C distinct rows of every cache: at most the
+        # smallest ring (a windowed layer's, else the cache itself).
+        slots = min(cache_rows(k["window"], self.max_len)
+                    for k in self.cfg.layer_kinds())
+        if chunk > slots:
             raise ValueError(
                 f"serving.prefill_chunk={chunk} exceeds the smallest cache "
-                f"ring ({self.max_len} slots); shrink the chunk")
+                f"ring ({slots} slots); shrink the chunk")
         self._validate_serving_policy(self.cfg)
         # Width-class variants (``variant``): built lazily, cached by
         # (width, batch), counted for telemetry.

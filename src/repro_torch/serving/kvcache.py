@@ -26,36 +26,40 @@ import torch
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models.backbone import init_cache
-from repro_torch.nn.attention import paged_eligible
+from repro_torch.nn.attention import cache_rows, paged_eligible
 
 
 def _dtype_bytes(dtype_str: str) -> int:
     return torch_dtype(dtype_str).itemsize
 
 
-def _layer_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
-    """Bytes of one attention layer's contiguous (per-slot) decode cache."""
-    return batch * seq_len * (cfg.n_kv_heads * cfg.head_dim_ * 2
-                              * _dtype_bytes(cfg.dtype) + 4)
+def _layer_bytes(cfg: ModelConfig, batch: int, rows: int) -> int:
+    """Bytes of ``rows`` K/V/pos rows for ``batch`` slots (or pages) of one
+    attention layer."""
+    return batch * rows * (cfg.n_kv_heads * cfg.head_dim_ * 2
+                           * _dtype_bytes(cfg.dtype) + 4)
 
 
 def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
     """Total decode-cache bytes for ``batch`` backbone streams."""
-    return cfg.n_layers * _layer_bytes(cfg, batch, seq_len)
+    return sum(_layer_bytes(cfg, batch, cache_rows(k["window"], seq_len))
+               for k in cfg.layer_kinds())
 
 
 def paged_cache_bytes(cfg: ModelConfig, batch: int, max_len: int, *,
                       pool_pages: int, page_size: int) -> int:
     """Bytes of the paged decode cache (``serving/paging.py``): every
     eligible layer holds a shared ``pool_pages``-page pool, trash page
-    included.  Pass ``table.pages_in_use + 1`` as ``pool_pages`` to count
-    the pages actually allocated."""
+    included; a windowed layer whose ring is shorter than ``max_len`` keeps
+    its per-slot ring.  Pass ``table.pages_in_use + 1`` as ``pool_pages``
+    to count the pages actually allocated."""
     total = 0
     for kind in cfg.layer_kinds():
-        if paged_eligible(kind["window"], max_len):
+        window = kind["window"]
+        if paged_eligible(window, max_len):
             total += _layer_bytes(cfg, pool_pages, page_size)
         else:
-            total += _layer_bytes(cfg, batch, max_len)
+            total += _layer_bytes(cfg, batch, cache_rows(window, max_len))
     return total
 
 
@@ -96,7 +100,7 @@ def _slot_index(slot_mask, device) -> torch.Tensor:
                            device=device)
 
 
-def _masked_restore(leaf, template, idx) -> None:
+def masked_restore(leaf, template, idx) -> None:
     """Slots ``idx`` of ``leaf`` take the template's values."""
     leaf[idx] = template[idx]
 
@@ -107,7 +111,7 @@ def reset_cache_slots(cache, template, slot_mask) -> None:
     idx = _slot_index(slot_mask, cache[0]["pos"].device)
     for layer, tmpl in zip(cache, template):
         for key, leaf in layer.items():
-            _masked_restore(leaf, tmpl[key], idx)
+            masked_restore(leaf, tmpl[key], idx)
 
 
 def snapshot_cache_slot(cache, slot: int) -> list:

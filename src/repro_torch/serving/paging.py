@@ -6,10 +6,11 @@ The contiguous ``KVSlotAllocator`` gives every backbone slot a private
 a slot, and one long generation pins a whole slot's memory.  This module
 pages the position axis instead:
 
-  * the pool: every attention layer holds ``pool_pages`` pages of
-    ``page_size`` positions (``Attention.init_paged_cache``); page 0 is a
-    reserved trash page — writes from emptied slots land there and no block
-    table ever references it;
+  * the pool: every eligible attention layer (``paged_eligible``) holds
+    ``pool_pages`` pages of ``page_size`` positions
+    (``Attention.init_paged_cache``); page 0 is a reserved trash page —
+    writes from emptied slots land there and no block table ever
+    references it;
   * the ``PageTable``: host-side free list + per-slot page rows.  A slot's
     page row is the same in every layer, so one (B, max_pages) device block
     table serves the whole cache;
@@ -20,12 +21,15 @@ pages the position axis instead:
     prefix page's tail is invalidated.  Freed pages are invalidated lazily
     (pos <- -1) when next allocated.
 
-The dense family's layers are all full attention, so every layer pages
-(``paged_eligible``); the reference's contiguous per-slot layers inside a
-paged cache (window rings, SSM states) have no counterpart here yet.
+Ineligible layers (a windowed layer whose ring is shorter than
+``max_len``) keep their contiguous per-slot rings inside the paged cache:
+they are imported from the primed template, reset through the same masked
+restore as the contiguous allocator's, and their slot slice travels with a
+parked slot.
 
 The reference updates the pool functionally and donates it; the port
-writes it in place, and the prefix chunks it re-imports from are copies.
+writes it in place, and the prefix chunks and ring templates it restores
+from are copies.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.backbone import init_cache
 from repro_torch.nn.attention import paged_eligible
+from repro_torch.serving.kvcache import masked_restore
 from repro_torch.serving.telemetry import NULL_TRACER
 
 TRASH_PAGE = 0
@@ -146,10 +151,12 @@ class PageTable:
 @dataclasses.dataclass
 class PagedPark:
     """Parked cache state of one preempted slot (the swap-ledger payload
-    under paging): the detached block-table row.  Its pool pages stay
-    resident, untouched, until resumption."""
+    under paging): the detached block-table row — its pool pages stay
+    resident, untouched, until resumption — plus a copy of the ineligible
+    contiguous layers' slot slice (None when every layer pages)."""
     row: np.ndarray
     n_pages: int
+    snapshot: Optional[list] = None
 
 
 class PagedKVSlotAllocator:
@@ -159,7 +166,8 @@ class PagedKVSlotAllocator:
     Construction imports the primed ``template`` (from ``Engine.prime``,
     contiguous, full-size or prefix-sized): every slot's prefix K/V is
     written into prefix pages allocated up front and never freed, so a
-    recycled slot keeps its prefix resident and skips the prefill.
+    recycled slot keeps its prefix resident and skips the prefill; the
+    ineligible layers' rings are copied from it.
 
     Flow: ``ensure`` maps every live slot's write positions to pages just
     before each step; the decode step writes ``.cache`` in place and the
@@ -189,10 +197,10 @@ class PagedKVSlotAllocator:
                 f"pool_pages={self.pool_pages} cannot hold "
                 f"{batch} slots x {self.n_prefix_pages} prefix pages "
                 f"+ 1 working page")
-        if not all(paged_eligible(k["window"], max_len)
-                   for k in cfg.layer_kinds()):
-            raise ValueError("every layer must page: contiguous layers "
-                             "inside a paged cache are not ported")
+        # Per layer: pooled, or a contiguous per-slot ring.
+        self._paged = [paged_eligible(k["window"], max_len)
+                       for k in cfg.layer_kinds()]
+        self._has_contiguous = not all(self._paged)
 
         if template is None:
             template = init_cache(cfg, batch, max_len,
@@ -200,6 +208,16 @@ class PagedKVSlotAllocator:
         self.device = template[0]["pos"].device
         self.cache = init_cache(cfg, batch, max_len, device=self.device,
                                 page_pool=(self.pool_pages, ps))
+        # Reset template of the contiguous layers (None for paged layers,
+        # which reset through the page table), padded to the live width
+        # when the prime was compact; the live rings start as copies.
+        self.template = [None if paged else self._expand(tmpl, live)
+                         for paged, tmpl, live in zip(self._paged, template,
+                                                      self.cache)]
+        for layer, tmpl in zip(self.cache, self.template):
+            if tmpl is not None:
+                for key, leaf in layer.items():
+                    leaf.copy_(tmpl[key])
         # Primed prefix content in page chunks, kept for the life of the
         # allocator: the import below writes every slot's prefix pages from
         # it, and ``park_slot`` re-imports one slot's worth.
@@ -221,17 +239,37 @@ class PagedKVSlotAllocator:
         return torch.as_tensor(np.asarray(page_ids, np.int64),
                                device=self.device)
 
+    def _pools(self):
+        """The paged layers' pools, with their prefix chunks."""
+        return [(layer, ch) for layer, ch, paged in
+                zip(self.cache, self._prefix_chunks, self._paged) if paged]
+
+    @staticmethod
+    def _expand(tmpl: dict, live: dict) -> dict:
+        """A copy of a contiguous layer's primed template, padded to the
+        live ring's width: a compact (prefix-sized) prime leaves the rows
+        past the prefix unwritten, so zeros (``pos`` -1) reproduce the
+        full-size prime bitwise."""
+        out = {}
+        for key, leaf in tmpl.items():
+            full = torch.full_like(live[key], -1 if key == "pos" else 0)
+            full[:, :leaf.shape[1]] = leaf
+            out[key] = full
+        return out
+
     def _prefix_chunks_from(self, template) -> list[dict]:
         """The primed prefix of every layer as page chunks, slot-major:
-        each pool key (B, npp, ps, ...).  ``pos`` is padded with -1 past the
-        prefix, so writing a chunk into freshly allocated pages also
-        invalidates what their previous owner wrote."""
+        each pool key (B, npp, ps, ...); None for a contiguous layer.
+        ``pos`` is padded with -1 past the prefix, so writing a chunk into
+        freshly allocated pages also invalidates what their previous owner
+        wrote."""
         ps, npp = self.page_size, self.n_prefix_pages
         width = npp * ps
         chunks = []
-        if npp == 0:
-            return chunks
-        for layer, tmpl in zip(self.cache, template):
+        for layer, tmpl, paged in zip(self.cache, template, self._paged):
+            if not (paged and npp):
+                chunks.append(None)
+                continue
             ch = {}
             for pool_key, pool in layer.items():
                 src = tmpl[_TEMPLATE_KEY[pool_key]]     # (B, S, ...)
@@ -254,14 +292,16 @@ class PagedKVSlotAllocator:
     def _import(self, prefix_rows: torch.Tensor) -> None:
         """Write the primed prefix chunks into every slot's pre-allocated
         prefix pages (``prefix_rows`` (B, npp))."""
-        for layer, ch in zip(self.cache, self._prefix_chunks):
+        if not self.n_prefix_pages:
+            return
+        for layer, ch in self._pools():
             for key, pool in layer.items():
                 pool[prefix_rows] = ch[key]
 
     def _import_slot(self, rows: torch.Tensor, slot: int) -> None:
         """Write one slot's primed prefix chunk into freshly allocated
         prefix pages ``rows`` (npp,): the park-reprovision path."""
-        for layer, ch in zip(self.cache, self._prefix_chunks):
+        for layer, ch in self._pools():
             for key, pool in layer.items():
                 pool[rows] = ch[key][slot]
 
@@ -270,7 +310,7 @@ class PagedKVSlotAllocator:
         reallocated: the previous owner's K/V is then masked exactly like
         unwritten contiguous rows."""
         idx = self._rows(page_ids)
-        for layer in self.cache:
+        for layer, _ in self._pools():
             layer["pos"][idx] = -1
 
     def _refresh_partial_pages(self) -> None:
@@ -321,10 +361,11 @@ class PagedKVSlotAllocator:
             self._device_table = None
 
     def reset_slots(self, slot_mask) -> None:
-        """Recycle the masked slots: free their non-prefix pages and
+        """Recycle the masked slots: free their non-prefix pages,
         re-invalidate the tail of their partial prefix page (offsets >=
-        prefix_len % page_size, which the drained generation overwrote).
-        Live slots are untouched bit-for-bit."""
+        prefix_len % page_size, which the drained generation overwrote) and
+        restore their contiguous rings to the primed template.  Live slots
+        are untouched bit-for-bit."""
         mask = np.asarray(slot_mask, bool)
         n_freed = 0
         for s in np.nonzero(mask)[0]:
@@ -335,8 +376,14 @@ class PagedKVSlotAllocator:
                               free_after=self.table.free_pages)
         if self.n_prefix_pages and self._partial_off and mask.any():
             pages = self._rows(self._partial_pages[mask])
-            for layer in self.cache:
+            for layer, _ in self._pools():
                 layer["pos"][pages, self._partial_off:] = -1
+        if self._has_contiguous and mask.any():
+            idx = self._rows(np.flatnonzero(mask))
+            for layer, tmpl in zip(self.cache, self.template):
+                if tmpl is not None:
+                    for key, leaf in layer.items():
+                        masked_restore(leaf, tmpl[key], idx)
         self._device_table = None
 
     # -- preempt-and-swap ------------------------------------------------------
@@ -344,12 +391,18 @@ class PagedKVSlotAllocator:
     def park_slot(self, slot: int) -> PagedPark:
         """Preempt-and-swap, paged flavour: detach the slot's block-table
         row — its pages stay resident in the pool, owned by the returned
-        payload, with no K/V copied — and reprovision the slot with fresh
-        prefix pages (content re-imported from the primed prefix chunks), so
-        its next occupant admits at ``prefix_len`` like a recycled slot.
-        Needs ``free_pages >= n_prefix_pages``; the scheduler checks before
-        preempting."""
+        payload, with no K/V copied — and copy the contiguous rings' slot
+        slice; reprovision the slot with fresh prefix pages (content
+        re-imported from the primed prefix chunks), so its next occupant
+        admits at ``prefix_len`` like a recycled slot (the scheduler resets
+        its rings).  Needs ``free_pages >= n_prefix_pages``; the scheduler
+        checks before preempting."""
         row, n = self.table.detach_row(slot)
+        snap = None
+        if self._has_contiguous:
+            snap = [None if paged else
+                    {k: t[slot:slot + 1].clone() for k, t in layer.items()}
+                    for layer, paged in zip(self.cache, self._paged)]
         if self.n_prefix_pages:
             for j in range(self.n_prefix_pages):
                 self.table.allocate(slot, j)
@@ -357,26 +410,40 @@ class PagedKVSlotAllocator:
                 self._rows(self.table.rows[slot, :self.n_prefix_pages]), slot)
             self._refresh_partial_pages()
         self._device_table = None
-        return PagedPark(row=row, n_pages=n)
+        return PagedPark(row=row, n_pages=n, snapshot=snap)
 
     def resume_slot(self, slot: int, payload: PagedPark) -> None:
         """Reattach a parked row into (any) drained slot: the slot's fresh
         prefix pages return to the free list and the parked pages come back
-        exactly as parked — a host-side row swap, so the resumed group's
-        decode continues bit-for-bit."""
+        exactly as parked — a host-side row swap — and the contiguous rings
+        take the parked slice, so the resumed group's decode continues
+        bit-for-bit."""
         self.table.free_slot(slot, keep=0)
         self.table.attach_row(slot, payload.row, payload.n_pages)
+        if payload.snapshot is not None:
+            for layer, snap in zip(self.cache, payload.snapshot):
+                if snap is not None:
+                    for key, leaf in layer.items():
+                        leaf[slot:slot + 1] = snap[key]
         self._refresh_partial_pages()
         self._device_table = None
 
     # -- accounting ------------------------------------------------------------
 
     def page_bytes(self) -> int:
-        """Bytes of one pool page summed across every layer."""
+        """Bytes of one pool page summed across every paged layer."""
         return sum(t.numel() * t.element_size()
-                   for layer in self.cache for t in layer.values()) \
+                   for layer, _ in self._pools() for t in layer.values()) \
             // self.pool_pages
 
+    def ring_bytes(self) -> int:
+        """Bytes of the contiguous layers' per-slot rings."""
+        return sum(t.numel() * t.element_size()
+                   for layer, paged in zip(self.cache, self._paged)
+                   if not paged for t in layer.values())
+
     def bytes_in_use(self) -> int:
-        """Bytes of pages actually allocated, trash page included."""
-        return (self.table.pages_in_use + 1) * self.page_bytes()
+        """Bytes of pages actually allocated, trash page included, plus
+        the contiguous rings."""
+        return self.ring_bytes() + \
+            (self.table.pages_in_use + 1) * self.page_bytes()

@@ -76,6 +76,7 @@ import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.serving import policies as serving_policies
 from repro_torch.serving.engine import Engine, ServeState
@@ -1147,10 +1148,16 @@ class ContinuousScheduler:
                                           chunk_lens=valid[sl])
             c.allocator.adopt(state.cache)
             self.pos[sl] += valid[sl]
-            logits = _host_logits(logits)                # (b, w, C, V)
             if not c.mux_active:
-                logits = logits[:, None, :, :]           # (b, 1, C, V)
-            logits_by_class[c.index] = logits
+                logits = logits[:, None]                 # (b, 1, C, V)
+            # One row per lane is ever sampled — a ramping lane's last
+            # prompt row (take - 1), a decoding lane's row 0 — so only
+            # those rows cross to the host: (b, w, V), not the whole chunk.
+            rows = np.maximum(takes[sl, :logits.shape[1]] - 1, 0)
+            rows = torch.as_tensor(rows, dtype=torch.long,
+                                   device=logits.device)
+            logits_by_class[c.index] = _host_logits(torch.take_along_dim(
+                logits, rows[:, :, None, None], dim=2)[:, :, 0])
 
         for c in self.classes:
             logits = logits_by_class[c.index]
@@ -1163,15 +1170,10 @@ class ContinuousScheduler:
                         continue
                     req = self.requests[rid]
                     if req.ramping:
-                        take = int(takes[s, l])
-                        req.fed += take
+                        req.fed += int(takes[s, l])
                         if req.ramping:  # prompt not fully consumed yet
                             continue
-                        row = take - 1   # first token: last prompt row
-                    else:
-                        row = 0
-                    self._emit(req, logits[c.local(s), l, row], s, l,
-                               released)
+                    self._emit(req, logits[c.local(s), l], s, l, released)
         return mask, released, valid
 
     def _emit(self, req: Request, lane_logits, s: int, l: int,

@@ -361,7 +361,7 @@ def test_flash_ops_raises_on_what_the_kernel_does_not_take(cuda):
 # prefill_chunk=4 form (tmux-12l-768h), and a ragged shape whose N·C = 9
 # rows per slot tile across slots unevenly (d, H multiples of 8).
 DECODE_CARD = [(8, 40, 1, 768, 1536), (8, 40, 4, 768, 1536),
-               (3, 3, 3, 96, 160)]
+               (3, 3, 3, 96, 160), (4, 8, 1, 18432, 36864)]
 
 
 @pytest.mark.cuda
@@ -408,10 +408,12 @@ def test_decode_demux_bodies_match_plain_version_on_card(cuda, shape, body):
         1.0, want.abs().max().item())
 
 
-# (B, N, L, d, H): the evaluation slice's demux (qwen1.5-4b) and a ragged
-# shape (L, N and H not multiples of the tiles; d, H multiples of 8, so
-# still the TMA body), then one whose H breaks TMA's 16-byte strides.
+# (B, N, L, d, H): the evaluation slice's demux (qwen1.5-4b), nemotron-4-
+# 340b's width (W1 alone 2.7 GB) and a ragged shape (L, N and H not
+# multiples of the tiles; d, H multiples of 8, so still the TMA body),
+# then one whose H breaks TMA's 16-byte strides.
 DEMUX_HOPPER = [((2, 8, 1024, 2560, 5120), "wgmma"),
+                ((1, 8, 256, 18432, 36864), "wgmma"),
                 ((3, 3, 17, 96, 160), "wgmma"),
                 ((3, 5, 7, 200, 300), "cluster")]
 
@@ -554,3 +556,74 @@ def test_mux_plans_match_plain_version_on_card(cuda, dtype, tol, b, n, l, d,
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= tol * max(
         1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_gemma3_smoke_paged_kernels_match_plain_path_on_card(cuda, chunk):
+    """gemma3-4b's smoke config (f32, window 16, every 2nd layer global)
+    served past its window (max_len 46 + prefix 2): the paged pool with the
+    paged, mux and decode-demux kernels (local layers in rings, global
+    layers paged) against the contiguous plain path over the same weights,
+    one-token and in chunks of 4, the same tokens fed to both: logits
+    within 1e-4 x max(1, max|plain|) at every step, and the paged kernel
+    launched once per global layer and step."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import Backbone
+    from repro_torch.serving.engine import Engine, ServeState
+    from repro_torch.serving.kvcache import KVSlotAllocator
+    from repro_torch.serving.paging import PagedKVSlotAllocator
+
+    b = 2
+    base = get_smoke_config("gemma3-4b", mux_n=2)
+    cfg = dataclasses.replace(
+        base, mux=dataclasses.replace(base.mux, use_kernel=True),
+        serving=ServingConfig(paged=True, page_size=8, use_kernel=True,
+                              fuse_demux=True, prefill_chunk=chunk))
+    model = Backbone(cfg, seed=0, device=cuda).eval()
+    plain = model.with_config(dataclasses.replace(
+        base, serving=ServingConfig(prefill_chunk=chunk)))
+    engines = []
+    for m, paged in ((model, True), (plain, False)):
+        eng = Engine(m, batch=b, max_len=46)
+        primed = eng.prime(compact=paged)
+        alloc = (PagedKVSlotAllocator if paged else KVSlotAllocator)(
+            m.cfg, b, eng.max_len, template=primed.cache)
+        engines.append((eng, alloc, primed))
+    assert [("k_pages" in c) for c in engines[0][1].cache] == \
+        [k["window"] is None for k in cfg.layer_kinds()]
+    n = cfg.mux.n
+    pos = engines[0][2].pos.cpu().numpy().copy()
+    lens = np.full(b, chunk, np.int32)
+    rng = np.random.default_rng(0)
+    _build.LAUNCHES.clear()
+    for _ in range(24 // chunk):
+        shape = (b, n, chunk) if chunk > 1 else (b, n)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, shape)).to(cuda)
+        kw = {"chunk_lens": lens} if chunk > 1 else \
+            {"lane_mask": torch.ones((b, n), device=cuda)}
+        out = []
+        for eng, alloc, primed in engines:
+            extra = {}
+            if isinstance(alloc, PagedKVSlotAllocator):
+                alloc.ensure(pos, np.ones(b, bool), lens)
+                extra["block_table"] = alloc.block_table
+            logits, st = eng.step(ServeState(alloc.cache, pos.copy(),
+                                             primed.index_embeds), toks,
+                                  **kw, **extra)
+            alloc.adopt(st.cache)
+            out.append(logits.float())
+        got, want = out
+        assert (got - want).abs().max().item() <= 1e-4 * max(
+            1.0, want.abs().max().item())
+        pos += chunk
+    torch.cuda.synchronize()
+    n_global = sum(k["window"] is None for k in cfg.layer_kinds())
+    assert _build.LAUNCHES["paged_decode_attention"] == \
+        n_global * (24 // chunk)
+    assert _build.LAUNCHES["decode_demux"] == 24 // chunk
