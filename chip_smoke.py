@@ -94,12 +94,31 @@ Phases, any failure of which ends the run with a non-zero exit:
      256 and 192) and the mux and demux kernels, against a ``with_config``
      view on the same weights with every kernel off (logits within
      LOGIT_TOL, losses within EVAL_LOSS_TOL), eval-step times on and off in
-     turns, peak memory under 70 GB, and a profile of each model's step.
+     turns, peak memory under 70 GB, and a profile of each model's step;
+ 10. the MoE block: ``llama4-scout-17b-a16e`` at full width (d 5120, 40
+     heads over 8 KV heads, 16 experts of 8192 top-1 and a shared expert,
+     vocab 202048), 8 of its 48 layers (39.7 GB of bf16 weights, the
+     router in float32), N=8, capacity_factor 1.25, served by
+     ``ContinuousScheduler`` on the paged pool (page_size 16, 8 slots)
+     with the mux, decode-demux and paged kernels: a 40-request Poisson
+     trace (prompt 32, 16 new tokens) at prefill_chunk 1 and 4; a
+     contiguous plain run over a ``with_config`` view replays the kernel
+     run's sampled tokens and its routing (``RoutingTape``: each row the
+     plain router would route otherwise must be a near-tie), giving the
+     same steps and tokens and every step's logits within LOGIT_TOL, and a
+     paged plain run the same peak pages; then ``make_eval_step`` (1
+     group, L 512) through flash and the mux and demux kernels against the
+     plain view (logits within LOGIT_TOL, task loss and ``moe_aux`` within
+     EVAL_LOSS_TOL), eval-step times in turns, peak memory under 70 GB,
+     and profiles of a scheduler step and an eval step with each MoE
+     stage's device time.
 
 Phase 2 also holds the mux and both demux kernels at every shape phases
-8 and 9 launch them (d 2560, 3072 and 18432), the paged kernel at
-gemma3-4b's chunked shape (64 rows x n_rep 2, hd 256) and flash attention
-at the three models' shapes in phase 9 against their plain versions.  The
+8-10 launch them (d 2560, 3072, 5120 and 18432), the paged kernel at
+gemma3-4b's chunked shape (64 rows x n_rep 2, hd 256) and llama4-scout's
+(n_rep 5, hd 128, C 1 and 4) and flash attention at the four models'
+shapes in phases 9 and 10 against their plain versions.  Each phase's
+seconds are printed.  The
 mux and demux launches of phases 3-9 record their shapes, and the run
 fails if one of them was not held in phase 2 (the launch plans are chosen
 from the shape).
@@ -298,7 +317,12 @@ def check_kernels(torch, gen):
             (2, 8, 1208, 2560, bf16), (2, 8, 1, 2560, bf16),
             (4, 8, 8, 2560, bf16), (4, 8, 64, 2560, bf16),
             (1, 8, 1288, 2560, bf16), (1, 8, 520, 3072, bf16),
-            (1, 8, 264, 18432, bf16)):
+            (1, 8, 264, 18432, bf16),
+            # llama4-scout-17b-a16e's [moe] shapes: a decode step of 8
+            # slots, a chunk of 4 rows, the prime of the 8-token prefix,
+            # the eval (512 tokens + the prefix)
+            (8, 8, 1, 5120, bf16), (8, 8, 4, 5120, bf16),
+            (8, 8, 8, 5120, bf16), (1, 8, 520, 5120, bf16)):
         x32, v32 = randn(b, n, l, d), randn(n, d)
         for dtype in dtypes:
             x, v = x32.to(dtype), v32.to(dtype)
@@ -338,7 +362,12 @@ def check_kernels(torch, gen):
                     ("index_embed_demux", 2, 8, 1, 2560, 5120, bf16),
                     ("decode_demux", 2, 8, 1, 2560, 5120, bf16),
                     ("index_embed_demux", 1, 8, 1280, 2560, 5120, bf16),
-                    ("index_embed_demux", 1, 8, 512, 3072, 6144, bf16))
+                    ("index_embed_demux", 1, 8, 512, 3072, 6144, bf16),
+                    # llama4-scout-17b-a16e's [moe] shapes: decode steps
+                    # of one row and chunks of 4, the eval
+                    ("decode_demux", 8, 8, 1, 5120, 10240, bf16),
+                    ("decode_demux", 8, 8, 4, 5120, 10240, bf16),
+                    ("index_embed_demux", 1, 8, 512, 5120, 10240, bf16))
     for name, b, n, l, d, hid, dtypes in demux_shapes:
         h32, p32 = randn(b, l, d), randn(b, n, d)
         w1_32, b1_32 = randn(hid, 2 * d, scale=(2 * d) ** -0.5), \
@@ -581,6 +610,13 @@ def check_paged_kernel(torch, gen):
         ("gemma3-4b C64", dict(b=4, h=8, kvh=4, hd=256, ps=16, mp=129,
                                c=64, lengths=[1137, 1262, 1391, 1500]),
          True, None, (1,)),
+        # llama4-scout-17b-a16e under [moe]: 40 heads over 8 KV heads of
+        # 128 (n_rep 5), 8 slots of a 9-page table, a decode row (5 query
+        # rows per KV head) and a chunk of 4 (20 rows, two row groups)
+        ("llama4 C1", dict(b=8, h=40, kvh=8, hd=128, ps=16, mp=9, c=1,
+                           lengths=tmux_lengths), True, None, (1,)),
+        ("llama4 C4", dict(b=8, h=40, kvh=8, hd=128, ps=16, mp=9, c=4,
+                           lengths=tmux_lengths), True, None, (1,)),
     ]
     results = []
     with torch.no_grad():
@@ -725,7 +761,8 @@ def flash_cases(torch, gen):
     # plus the sequence, one group
     for label, (b, l, h, hd) in (("gemma3-4b eval", (1, 1288, 8, 256)),
                                  ("gemma-7b eval", (1, 520, 16, 256)),
-                                 ("nemotron-4-340b eval", (1, 264, 96, 192))):
+                                 ("nemotron-4-340b eval", (1, 264, 96, 192)),
+                                 ("llama4-scout eval", (1, 520, 40, 128))):
         q, k, v = (randn(b, l, h, hd) for _ in range(3))
         cases.append((label, q, k, v, True, None))
     q = randn(1, 32, 2, 64)
@@ -907,8 +944,8 @@ def record_teacher_forced(sched, keep: list, pick=None,
     any sampled token was emitted — and so before any could be fed back:
     those steps' inputs are prompt tokens only, the same in every run of
     the trace.  ``pick`` keeps a part of each step's logits.
-    ``every_step`` keeps every step's, on the card (for runs whose sampled
-    tokens are replayed, ``Replay``)."""
+    ``every_step`` keeps every step's, on the card in the logits' own dtype
+    (for runs whose sampled tokens are replayed, ``Replay``)."""
     inner = sched.engine.step
 
     def step(state, tokens, **kw):
@@ -916,9 +953,7 @@ def record_teacher_forced(sched, keep: list, pick=None,
         logits, state = inner(state, tokens, **kw)
         if forced:
             part = logits if pick is None else pick(logits)
-            f32 = part.float()
-            keep.append((f32.clone() if f32 is part else f32) if every_step
-                        else f32.cpu())
+            keep.append(part.clone() if every_step else part.float().cpu())
         return logits, state
     sched.engine.step = step
 
@@ -932,6 +967,7 @@ def check_forced(tag: str, forced: list, pforced: list) -> None:
                          f"vs {len(pforced)}")
     worst, clear_n, equal_n, lanes, agree = 0.0, 0, 0, 0, 0
     for i, (got, ref) in enumerate(zip(forced, pforced)):
+        got, ref = got.float(), ref.float()
         err = (got - ref).abs().max().item()
         tol = LOGIT_TOL * ref.abs().max().item()
         top2 = ref.topk(2, dim=-1).values
@@ -1151,7 +1187,23 @@ def device_rows(events, steps: int) -> list[tuple[float, str]]:
 
     return sorted(((e.self_device_time_total / 1e3 / steps, e.key)
                    for e in events if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and e.self_device_time_total > 0), reverse=True)
+
+
+def print_stages(events, steps: int, label: str) -> None:
+    """Device ms per step of each profiler label of the MoE block
+    (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
+    ``moe.shared``): the kernels launched inside the label."""
+    from torch.autograd import DeviceType
+
+    stages = sorted((e.key, e.device_time_total / 1e3 / steps, e.count)
+                    for e in events if e.key.startswith("moe.")
+                    and e.device_type == DeviceType.CPU)
+    if stages:
+        print(f"[profile] {label}: MoE stages, device ms per step: "
+              + ", ".join(f"{key} {t:.4f} (x{count / steps:.0f})"
+                          for key, t, count in stages))
 
 
 def profile_scheduler(torch, sched, trace, warm: int = 12, steps: int = 8,
@@ -1190,6 +1242,7 @@ def profile_scheduler(torch, sched, trace, warm: int = 12, steps: int = 8,
           f"step, idle share {1 - busy / wall:.3f}")
     for t, key in rows[:10]:
         print(f"[profile]   {t:8.4f} ms  {key[:90]}")
+    print_stages(events, steps, label)
     host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count / steps,
                     e.key) for e in events), reverse=True)
     print(f"[profile] {label}: host time per step by op "
@@ -1815,7 +1868,8 @@ def profile_eval(torch, step, state, batch, index, wall: float,
                              ProfilerActivity.CUDA]) as prof:
         step(state, batch, None, retr_index=index)
         torch.cuda.synchronize()
-    rows = device_rows(prof.key_averages(), 1)
+    events = prof.key_averages()
+    rows = device_rows(events, 1)
     busy = sum(t for t, _ in rows)
     if not busy:
         print(f"[profile] {label}: device time not measured (the "
@@ -1827,6 +1881,7 @@ def profile_eval(torch, step, state, batch, index, wall: float,
           f"flash_attention {flash:.3f} ms = {flash / busy:.3f} of busy")
     for t, key in rows[:12]:
         print(f"[profile]   {t:9.4f} ms  {key[:90]}")
+    print_stages(events, 1, label)
 
 
 # ---------------------------------------------------------------------------
@@ -2197,6 +2252,377 @@ def run_dense(torch, seed: int):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the MoE block in llama4-scout-17b-a16e
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 8                        # of llama4-scout's 48 (39.7 GB of bf16)
+
+
+class RoutingTape:
+    """The routing of each MoE layer call, recorded in a kernel run and
+    replayed in a plain run of the same calls (``install`` wraps
+    ``repro_torch.nn.moe.route`` and ``dispatch``).
+
+    ``record``: each call's expert ids and keep flags per (row, choice)
+    and its valid rows.  ``replay``: each call takes the recorded call's
+    expert ids (weighted by the plain router's own scores of them), so the
+    plain run follows the kernel run's routing as it follows its sampled
+    tokens, and every later step stays teacher-forced; the plain router's
+    own ids and the keep flags they would give are compared with the
+    recorded ones.  A valid row whose own ids differ must be a near-tie:
+    the gap between consecutive ones of its top k + 1 router logits is at
+    most 2 x LOGIT_TOL x max|router logits| (the margin below which the
+    kernels' bf16 rounding, held to LOGIT_TOL on the logits, may reorder
+    the choice; the same rule ``Replay`` applies to sampled tokens).  A
+    row whose ids agree but whose keep flag differs lost or gained its
+    capacity slot to such a row, and may occur only in a call that has
+    one."""
+
+    def __init__(self):
+        self.mode, self.calls, self.at = None, [], 0
+        self.rows = self.id_rows = self.keep_rows = self.calls_differing = 0
+        self.worst = 0.0                  # largest gap / threshold of a diff
+        self._own = None
+
+    def install(self):
+        from repro_torch.nn import moe
+
+        real_route, real_dispatch = moe.route, moe.dispatch
+
+        def route(logits, cfg, row_mask=None):
+            import torch
+            top_w, top_ids, aux = real_route(logits, cfg, row_mask)
+            if self.mode == "record":
+                self.calls.append({"ids": top_ids.clone()})
+            elif self.mode == "replay":
+                rec = self.calls[self.at]
+                if rec["ids"].shape != top_ids.shape:
+                    raise SystemExit(f"[moe] FAIL: MoE call {self.at} has "
+                                     f"{tuple(top_ids.shape)} rows x choices "
+                                     f"in the plain run, "
+                                     f"{tuple(rec['ids'].shape)} in the "
+                                     f"kernel run")
+                scores = (torch.sigmoid(logits) if cfg.router_scoring ==
+                          "sigmoid" else torch.softmax(logits, dim=-1))
+                w = scores.gather(1, rec["ids"])
+                top_w = w / (w.sum(-1, keepdim=True) + 1e-9)
+                self._own = (top_ids, logits)
+                top_ids = rec["ids"]
+            return top_w, top_ids, aux
+
+        def dispatch(top_ids, row_mask, cap, n_experts):
+            import torch
+            out = real_dispatch(top_ids, row_mask, cap, n_experts)
+            if self.mode is None:
+                return out
+
+            def pair_keep(order, keep):
+                flags = torch.zeros_like(keep).scatter_(0, order, keep)
+                return flags.view(top_ids.shape)
+            if self.mode == "record":
+                self.calls[-1]["keep"] = pair_keep(out[0], out[2])
+                return out
+            rec = self.calls[self.at]
+            own_ids, logits = self._own
+            own = real_dispatch(own_ids, row_mask, cap, n_experts)
+            own_keep = pair_keep(own[0], own[2])
+            valid = (torch.ones(len(own_ids), dtype=torch.bool,
+                                device=own_ids.device) if row_mask is None
+                     else row_mask)
+            ids_differ = (own_ids != rec["ids"]).any(1) & valid
+            keep_differ = (own_keep != rec["keep"]).any(1) & valid \
+                & ~ids_differ
+            k = own_ids.shape[1]
+            top = torch.sort(logits, dim=-1, descending=True).values[
+                :, :k + 1]
+            gap = (top[:, :-1] - top[:, 1:]).amin(-1)
+            limit = 2 * LOGIT_TOL * logits.abs().amax(-1)
+            n_ids, n_keep = int(ids_differ.sum()), int(keep_differ.sum())
+            self.rows += int(valid.sum())
+            self.id_rows += n_ids
+            self.keep_rows += n_keep
+            self.calls_differing += bool(n_ids)
+            if n_ids:
+                ratio = (gap / limit)[ids_differ].max().item()
+                self.worst = max(self.worst, ratio)
+                if not ratio <= 1.0:
+                    raise SystemExit(
+                        f"[moe] FAIL: MoE call {self.at}: a row routed "
+                        f"differently from the kernel run is not a near-tie "
+                        f"(router gap {ratio:.3f} x the threshold)")
+            if n_keep and not n_ids:
+                raise SystemExit(f"[moe] FAIL: MoE call {self.at}: keep flags "
+                                 f"differ with no row routed differently")
+            self.at += 1
+            return out
+
+        moe.route, moe.dispatch = route, dispatch
+
+    def start(self, mode: str) -> None:
+        if mode == "record":
+            self.calls = []
+        self.mode, self.at = mode, 0
+        self.rows = self.id_rows = self.keep_rows = self.calls_differing = 0
+        self.worst = 0.0
+
+    def finish(self, tag: str) -> None:
+        """After a replay: every recorded call was replayed; print the
+        counts."""
+        if self.mode == "replay" and self.at != len(self.calls):
+            raise SystemExit(f"{tag} FAIL: the plain run made {self.at} MoE "
+                             f"calls, the kernel run {len(self.calls)}")
+        if self.mode == "replay":
+            print(f"{tag} routing, plain router vs the kernel run's: "
+                  f"{self.id_rows} of {self.rows} valid rows chose other "
+                  f"experts (in {self.calls_differing} of {self.at} MoE "
+                  f"calls), each a near-tie (largest gap "
+                  f"{self.worst:.3f} x the threshold 2 x LOGIT_TOL x "
+                  f"max|router logits|); {self.keep_rows} more rows' keep "
+                  f"flags moved with them")
+        self.mode = None
+
+
+def run_moe(torch, seed: int):
+    """llama4-scout-17b-a16e at full width (d 5120, 40 heads over 8 KV
+    heads, 16 experts of 8192 top-1 and a shared expert, vocab 202048),
+    8 of its 48 layers, N = 8, bf16, weights from ``seed``, the config's
+    own capacity_factor 1.25.  Serving: ``ContinuousScheduler`` on the
+    paged pool (page_size 16, 8 slots) with the mux, decode-demux and
+    paged kernels serves a 40-request Poisson trace (prompt 32, 16 new
+    tokens) at prefill_chunk 1 and 4; a contiguous plain run over a
+    ``with_config`` view replays the kernel run's sampled tokens and its
+    routing (``RoutingTape``): equal decode steps and tokens, every
+    step's logits within LOGIT_TOL, greedy picks equal where clear; a
+    paged plain run (tokens replayed) gives the same steps and peak
+    pages.  Evaluation: ``make_eval_step`` through flash and the mux and
+    demux kernels (1 group, L 512) against the plain view with the
+    routing replayed: logits within LOGIT_TOL, task loss and ``moe_aux``
+    within EVAL_LOSS_TOL.  Peak memory under 70 GB; eval-step times on and
+    off in turns; profiles of a scheduler step and an eval step with the
+    MoE stages' device time."""
+    import gc
+
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.retrieval import retrieval_index
+    from repro_torch.data import RetrievalTask, mux_batches
+    from repro_torch.kernels import _build
+    from repro_torch.models import Backbone
+    from repro_torch.nn.moe import capacity
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import (ContinuousScheduler,
+                                               poisson_trace)
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch, n_requests, rate, prompt_len, gen_len = 8, 40, 8.0, 32, 16
+    max_total = prompt_len * 2 + gen_len * 4 + 1
+    full = get_config("llama4-scout-17b-a16e", mux_n=8)
+    base = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    moe = base.moe
+    kernels = dataclasses.replace(
+        base, mux=dataclasses.replace(base.mux, use_kernel=True),
+        serving=ServingConfig(paged=True, page_size=16, use_kernel=True,
+                              fuse_demux=True))
+    model = Backbone(kernels, seed=seed, device="cuda").eval()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    router = {p.dtype for n, p in model.named_parameters() if "router" in n}
+    print(f"[moe] {base.name}: d={base.d_model}, {base.n_heads} heads of "
+          f"{base.head_dim_} over {base.n_kv_heads} KV heads, "
+          f"{moe.n_experts} experts of {moe.moe_ff} top-{moe.top_k} "
+          f"({moe.router_scoring}, capacity_factor {moe.capacity_factor}) "
+          f"+ {moe.n_shared_experts} shared, vocab {base.vocab}, "
+          f"N={base.mux.n}, {base.dtype} (router {sorted(map(str, router))})"
+          f", {weights / 1e9:.2f} GB of weights; reduced: {MOE_LAYERS} of "
+          f"{full.n_layers} layers")
+    if router != {torch.float32}:
+        raise SystemExit("[moe] FAIL: the router weight is not float32")
+    trace = poisson_trace(n_requests, rate=rate, prompt_len=prompt_len,
+                          gen_len=gen_len, vocab=base.vocab,
+                          max_total=max_total, seed=seed)
+    print(f"[moe] poisson_trace({n_requests}, rate={rate}, prompt_len="
+          f"{prompt_len}, gen_len={gen_len}, max_total={max_total}), batch "
+          f"{batch}, page_size 16; capacity per expert at a decode step of "
+          f"{batch} rows: {capacity(batch, moe)}, at a chunk of 4 rows: "
+          f"{capacity(4 * batch, moe)}")
+    tape = RoutingTape()
+    tape.install()
+
+    def scheduler(m, chunk):
+        m = m.with_config(dataclasses.replace(
+            m.cfg, serving=dataclasses.replace(m.cfg.serving,
+                                               prefill_chunk=chunk)))
+        return ContinuousScheduler(Engine(m, batch=batch, max_len=max_total))
+
+    plain = model.with_config(dataclasses.replace(
+        base, serving=ServingConfig()))
+    paged_plain = model.with_config(dataclasses.replace(
+        base, serving=ServingConfig(paged=True, page_size=16)))
+    scheduler(model, 1).run([r.fresh() for r in trace[:8]])   # warm-up
+    torch.cuda.synchronize()
+    launches = {}
+    for chunk in (1, 4):
+        tape.start("record")
+        _build.LAUNCHES.clear()
+        sched = scheduler(model, chunk)
+        forced = []
+        record_teacher_forced(sched, forced, pick=last_row, every_step=True)
+        t0 = time.perf_counter()
+        stats = sched.run([r.fresh() for r in trace])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        tape.finish("[moe]")
+        run_launches = dict(_build.LAUNCHES)
+        alloc = sched.allocator
+        print(f"[moe] prefill_chunk {chunk}: {stats.finished}/{n_requests} "
+              f"requests, {stats.decode_steps} decode steps, "
+              f"{stats.generated_tokens} tokens in {dt:.4f} s = "
+              f"{stats.generated_tokens / dt:.1f} tok/s, "
+              f"{dt / stats.decode_steps * 1e3:.3f} ms per step (bf16, "
+              f"{torch.cuda.get_device_name(0)}); peak {stats.peak_pages}/"
+              f"{alloc.table.usable_pages} pages; {len(tape.calls)} MoE "
+              f"calls; kernel launches {run_launches}")
+        if stats.finished != n_requests:
+            raise SystemExit("[moe] FAIL: not every request finished")
+        if alloc.table.pages_in_use != alloc.n_prefix_pages * batch:
+            raise SystemExit("[moe] FAIL: pages leaked after the drain")
+        if run_launches.get("paged_decode_attention", 0) != \
+                base.n_layers * stats.decode_steps:
+            raise SystemExit(f"[moe] FAIL: paged_decode_attention launched "
+                             f"{run_launches.get('paged_decode_attention')} "
+                             f"times, expected "
+                             f"{base.n_layers * stats.decode_steps}")
+        for name in ("hadamard_mux", "decode_demux"):
+            if not run_launches.get(name):
+                raise SystemExit(f"[moe] FAIL: {name} never launched")
+        if len(tape.calls) != base.n_layers * (stats.decode_steps + 1):
+            raise SystemExit(f"[moe] FAIL: {len(tape.calls)} MoE calls, "
+                             f"expected one per layer and step and the "
+                             f"prime's")
+        for name, count in run_launches.items():
+            launches[name] = launches.get(name, 0) + count
+
+        outputs = {q.rid: list(q.output) for q in sched.finished}
+        tape.start("replay")           # the prime's MoE calls too
+        _build.LAUNCHES.clear()
+        psched = scheduler(plain, chunk)
+        psched.sampling = Replay(psched.sampling, outputs)
+        pforced = []
+        record_teacher_forced(psched, pforced, pick=last_row,
+                              every_step=True)
+        pstats = psched.run([r.fresh() for r in trace])
+        torch.cuda.synchronize()
+        tape.finish(f"[moe] prefill_chunk {chunk}")
+        ppsched = scheduler(paged_plain, chunk)
+        ppsched.sampling = Replay(ppsched.sampling, outputs)
+        ppstats = ppsched.run([r.fresh() for r in trace])
+        torch.cuda.synchronize()
+        if _build.LAUNCHES:
+            raise SystemExit(f"[moe] FAIL: the plain path launched "
+                             f"{dict(_build.LAUNCHES)}")
+        for what, a, b in (
+                ("decode steps (contiguous plain)", stats.decode_steps,
+                 pstats.decode_steps),
+                ("generated tokens (contiguous plain)",
+                 stats.generated_tokens, pstats.generated_tokens),
+                ("decode steps (paged plain)", stats.decode_steps,
+                 ppstats.decode_steps),
+                ("peak pages (paged plain)", stats.peak_pages,
+                 ppstats.peak_pages)):
+            print(f"[moe] prefill_chunk {chunk} {what}: kernels {a}, "
+                  f"plain {b}")
+            if a != b:
+                raise SystemExit(f"[moe] FAIL: prefill_chunk {chunk} {what} "
+                                 f"differ")
+        check_forced(f"[moe] prefill_chunk {chunk}", forced, pforced)
+        check_replay(f"[moe] prefill_chunk {chunk}", psched.sampling)
+        del forced, pforced, sched, psched, ppsched
+        gc.collect()
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    profile_scheduler(torch, scheduler(model, 1), trace, warm=8, steps=4,
+                      label="moe scheduler step")
+
+    # Evaluation through flash and the mux and demux kernels against the
+    # plain view, the plain run replaying the kernel run's routing.
+    seq_len = 512
+    tcfg = TrainConfig(task="lm")
+    flash = model.with_config(dataclasses.replace(
+        kernels, serving=ServingConfig()), use_flash=True)
+    state, pstate = {"model": flash}, {"model": plain}
+    batch_ = {k: torch.as_tensor(v).long().cuda() for k, v in next(iter(
+        mux_batches(RetrievalTask(vocab=base.vocab, seq_len=seq_len),
+                    groups=1, n_mux=base.mux.n, steps=1,
+                    seed=seed))).items()}
+    index = retrieval_index(torch.Generator(device="cuda").manual_seed(seed),
+                            1, base.mux.n, seq_len)
+    step = Trainer.make_eval_step(flash.cfg, tcfg)
+    plain_step = Trainer.make_eval_step(plain.cfg, tcfg)
+    step(state, batch_, None, retr_index=index)                # warm-up
+    torch.cuda.synchronize()
+    tape.start("record")
+    _build.LAUNCHES.clear()
+    metrics = step(state, batch_, None, retr_index=index)
+    with torch.inference_mode():
+        logits = flash(batch_["tokens"])["logits"]
+    torch.cuda.synchronize()
+    eval_launches = dict(_build.LAUNCHES)
+    tape.finish("[moe]")
+    want = {"flash_attention": 2 * base.n_layers, "hadamard_mux": 2,
+            "index_embed_demux": 2}
+    print(f"[moe] eval (1 group, L {seq_len}): kernel launches in one eval "
+          f"step and one forward {eval_launches}")
+    if eval_launches != want:
+        raise SystemExit(f"[moe] FAIL: eval launches {eval_launches}, "
+                         f"expected {want}")
+    for name, count in eval_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    tape.start("replay")
+    plain_metrics = plain_step(pstate, batch_, None, retr_index=index)
+    with torch.inference_mode():
+        plain_logits = plain(batch_["tokens"])["logits"]
+    torch.cuda.synchronize()
+    tape.finish("[moe] eval")
+    n = base.mux.n
+    err = max((logits[:, i].float() - plain_logits[:, i].float())
+              .abs().max().item() for i in range(n))
+    tol = LOGIT_TOL * plain_logits.abs().max().item()
+    agree = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
+    print(f"[moe] eval logits {tuple(logits.shape)}, flash + kernels vs "
+          f"plain: max_abs_err {err:.4g} (tol {tol:.4g}), greedy tokens "
+          f"agree {agree.item():.4f}")
+    if not (err <= tol and bool(logits.isfinite().all())):
+        raise SystemExit("[moe] FAIL: eval logits disagree")
+    del logits, plain_logits
+    for key in ("task_loss", "retr_loss", "moe_aux"):
+        got, ref = float(metrics[key]), float(plain_metrics[key])
+        rel = abs(got - ref) / abs(ref)
+        print(f"[moe] eval {key}: flash + kernels {got:.6g}, plain "
+              f"{ref:.6g}, relative diff {rel:.3g} (tol {EVAL_LOSS_TOL})")
+        if not (rel <= EVAL_LOSS_TOL and math.isfinite(got)):
+            raise SystemExit(f"[moe] FAIL: eval {key} disagrees")
+    walls = {"flash + kernels": [], "plain": []}
+    runs = {"flash + kernels": (step, state), "plain": (plain_step, pstate)}
+    for label in ("flash + kernels", "plain") * 2:           # in turns
+        fn, st = runs[label]
+        walls[label].append(eval_step_ms(torch, fn, st, [batch_], [index]))
+    peak_gb = max(serve_peak, torch.cuda.max_memory_allocated() / 1e9)
+    print("[moe] eval step wall ms (in turns): "
+          + ", ".join(f"{label} {[round(t, 3) for t in w]}"
+                      for label, w in walls.items())
+          + f"; peak memory of the phase {peak_gb:.2f} GB (serving "
+          f"{serve_peak:.2f} GB)")
+    if not peak_gb < 70:
+        raise SystemExit(f"[moe] FAIL: peak memory {peak_gb:.2f} GB")
+    profile_eval(torch, step, state, batch_, index,
+                 statistics.median(walls["flash + kernels"]),
+                 label="moe eval step")
+    del state, pstate, model, plain, paged_plain, flash
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2227,13 +2653,14 @@ def main(argv=None) -> int:
     results = (check_kernels(torch, gen) + check_paged_kernel(torch, gen)
                + check_flash_kernel(torch, gen))
     seen = record_shapes()
-    by_phase = {"slice": run_slice(torch, args.seed),
-                "paged": run_paged_slice(torch, args.seed),
-                "eval": run_eval(torch, args.seed),
-                "router": run_router(torch, args.seed),
-                "train": run_train(torch, args.seed),
-                "window": run_window(torch, args.seed),
-                "dense": run_dense(torch, args.seed)}
+    by_phase = {}
+    for phase, run in (("slice", run_slice), ("paged", run_paged_slice),
+                       ("eval", run_eval), ("router", run_router),
+                       ("train", run_train), ("window", run_window),
+                       ("dense", run_dense), ("moe", run_moe)):
+        t0 = time.perf_counter()
+        by_phase[phase] = run(torch, args.seed)
+        print(f"[time] phase [{phase}]: {time.perf_counter() - t0:.1f} s")
     check_shapes(seen, results)
     launches = dict(by_phase["slice"])
     launches["paged_decode_attention"] = by_phase["paged"][

@@ -14,7 +14,11 @@ JAX nor the reference package.  Mapping:
     ``bias`` (a stacked ``w`` of shape (N, in, out), as the "mlp" demux
     keeps it, becomes (N, out, in));
   * every other leaf keeps its name and value (``embed.table``,
-    ``mux.v``, ``demux.prefix_table``, norm ``scale``/``bias``, ...).
+    ``mux.v``, ``demux.prefix_table``, norm ``scale``/``bias``, an MoE
+    layer's expert stacks ``moe.up`` / ``moe.gate`` (E, d, f) and
+    ``moe.down`` (E, f, d), ...); an MoE router ``{"w": (d, E)}`` is a
+    Linear like any other (``moe.router.weight`` (E, d)) and keeps its
+    float32.
 
 A tied embedding stays tied: the reference then has no ``lm_head`` and
 neither does the state_dict.  A trainer's task head ``{"w": (d,

@@ -2,9 +2,9 @@
 
 ``MuxConfig`` and ``ServingConfig`` keep the reference's fields and
 defaults, so one set of values describes a run in both packages.
-``ModelConfig`` keeps the fields of the dense family, the only family the
-port's backbone runs so far.  Strategy names are validated against the
-port's own registry (``repro_torch.core.strategies``).
+``ModelConfig`` keeps the fields of the dense and MoE families, the ones
+the port's backbone runs so far.  Strategy names are validated against
+the port's own registry (``repro_torch.core.strategies``).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from repro_torch.nn.attention import AttnConfig
+from repro_torch.nn.moe import MoEConfig
 
 DTYPES = {
     "float32": torch.float32,
@@ -146,13 +147,16 @@ class ServingConfig:
 
 
 # ---------------------------------------------------------------------------
-# Model config (dense family)
+# Model config (dense and MoE families)
 # ---------------------------------------------------------------------------
+
+FAMILIES = ("dense", "moe")          # the families the port runs so far
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # only "dense" so far
+    family: str                      # dense | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -163,6 +167,9 @@ class ModelConfig:
     head_dim: int = 0                # 0 -> d_model // n_heads
     window: int | None = None        # sliding window of the local layers
     global_every: int = 0            # every k-th layer is global (0: none)
+    moe: MoEConfig | None = None
+    moe_layer_start: int = 0         # layers < start are dense MLP
+    moe_every: int = 1               # every k-th layer (within MoE region) is MoE
     norm: str = "rmsnorm"
     activation: str = "silu"
     gated_mlp: bool = True
@@ -176,10 +183,11 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
 
     def __post_init__(self):
-        if self.family != "dense":
+        if self.family not in FAMILIES:
             raise ValueError(
-                f"the port runs the dense family only so far, got family="
-                f"{self.family!r} (ROADMAP Queue A item 9)")
+                f"the port runs the {' and '.join(FAMILIES)} families only "
+                f"so far, got family={self.family!r} (ROADMAP Queue A item "
+                f"9)")
         torch_dtype(self.dtype)
         torch_dtype(self.param_dtype)
         from repro_torch.core import strategies
@@ -236,18 +244,25 @@ class ModelConfig:
             kblock_pages=self.serving.kblock_pages)
 
     def layer_kinds(self) -> list[dict]:
-        """Static per-layer structure.  Dense family: every layer is
-        attention followed by a dense MLP when ``d_ff`` is set; with a
-        ``window``, layer i is global (no window) iff ``global_every`` and
-        ``(i + 1) % global_every == 0``, and local (``window``) otherwise,
-        as in the reference."""
-        mlp = "dense" if self.d_ff else None
+        """Static per-layer structure, by the reference's rules: every
+        layer is attention followed by an MLP when ``d_ff`` or ``moe`` is
+        set; the MLP of layer i is MoE iff ``moe`` is set, ``i >=
+        moe_layer_start`` and ``(i - moe_layer_start) % moe_every == 0``,
+        and dense otherwise; with a ``window``, layer i is global (no
+        window) iff ``global_every`` and ``(i + 1) % global_every == 0``,
+        and local (``window``) otherwise."""
         kinds = []
         for i in range(self.n_layers):
             window = None
             if self.window is not None and not (
                     self.global_every and (i + 1) % self.global_every == 0):
                 window = self.window
+            mlp = None
+            if self.d_ff or self.moe:
+                mlp = "dense"
+                if (self.moe is not None and i >= self.moe_layer_start and
+                        (i - self.moe_layer_start) % self.moe_every == 0):
+                    mlp = "moe"
             kinds.append(dict(mixer="attn", mlp=mlp, window=window))
         return kinds
 

@@ -2,20 +2,22 @@
 
 The port registers the archs of the dense family: the paper's T-MUX
 (three sizes), qwen1.5-4b, gemma-7b, gemma3-4b (sliding-window local
-layers) and nemotron-4-340b.  The smoke rules are the reference's
+layers) and nemotron-4-340b; and of the MoE family, llama4-scout-17b-a16e.
+The smoke rules are the reference's
 (``repro.configs.registry.get_smoke_config``) for these archs.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (gemma3_4b, gemma_7b, nemotron_4_340b,
-                                 qwen1_5_4b, tmux_12l_768h)
+from repro_torch.configs import (gemma3_4b, gemma_7b, llama4_scout_17b_a16e,
+                                 nemotron_4_340b, qwen1_5_4b, tmux_12l_768h)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
     "gemma-7b": gemma_7b.CONFIG,
     "gemma3-4b": gemma3_4b.CONFIG,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
     "nemotron-4-340b": nemotron_4_340b.CONFIG,
     "qwen1.5-4b": qwen1_5_4b.CONFIG,
     "tmux-12l-768h": tmux_12l_768h.CONFIG,
@@ -41,16 +43,24 @@ def get_config(arch: str, *, mux_n: int | None = None,
 def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
     """Reduced same-family variant: 4 layers, d_model <= 256, 4 heads,
     vocab 512, float32; a windowed arch keeps window 16 with every 2nd
-    layer global."""
+    layer global; an MoE arch keeps 4 experts of width 2 * d_model, top-k
+    at most 2, and its MoE layers from layer 1 at the latest."""
     cfg = get_config(arch)
     d = min(cfg.d_model, 256)
     heads = 4
     kv = min(cfg.n_kv_heads, heads)
     kv = heads // max(1, heads // kv)  # keep divisibility
-    window = {"window": 16, "global_every": 2} if cfg.global_every else {}
+    kw: dict = {}
+    if cfg.global_every:
+        kw.update(window=16, global_every=2)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, dim=d, moe_ff=2 * d, n_experts=4,
+            top_k=min(cfg.moe.top_k, 2))
+        kw["moe_layer_start"] = min(cfg.moe_layer_start, 1)
     return dataclasses.replace(
         cfg,
-        **window,
+        **kw,
         name=cfg.name + "-smoke",
         n_layers=4,
         d_model=d,

@@ -1,5 +1,5 @@
-"""Dense multiplexed backbone — the port of ``repro.models.backbone`` for
-the dense family.
+"""Multiplexed backbone — the port of ``repro.models.backbone`` for the
+dense and MoE families.
 
 DataMUX is integrated as in the reference: token embedding → prefix
 protocol → mux strategy → attention + MLP blocks → demux strategy →
@@ -20,6 +20,7 @@ from repro_torch.core.strategies import get_demux, get_mux
 from repro_torch.device import resolve_device
 from repro_torch.nn.attention import Attention, paged_eligible
 from repro_torch.nn.layers import MLP, Embedding, Linear, make_norm
+from repro_torch.nn.moe import MoE
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
@@ -43,7 +44,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP residual block."""
+    """Pre-norm attention + MLP (dense or MoE) residual block."""
 
     def __init__(self, cfg: ModelConfig, kind: dict, *, generator, device,
                  dtype, use_flash: bool = False):
@@ -54,31 +55,43 @@ class Block(nn.Module):
                                               use_flash=use_flash),
                               generator=generator, device=device,
                               dtype=dtype)
-        self.norm2 = self.mlp = None
-        if kind["mlp"] == "dense":
+        self.norm2 = self.mlp = self.moe = None
+        if kind["mlp"] is not None:
             self.norm2 = norm(cfg.d_model, device=device, dtype=dtype)
+        if kind["mlp"] == "dense":
             self.mlp = MLP(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
                            activation=cfg.activation, generator=generator,
                            device=device, dtype=dtype)
+        elif kind["mlp"] == "moe":
+            self.moe = MoE(cfg.moe, generator=generator, device=device,
+                           dtype=dtype)
 
     def with_attn_config(self, acfg) -> "Block":
         """This block's weights (shared) with its attention under ``acfg``."""
         out = Block.__new__(Block)
         nn.Module.__init__(out)
-        out.norm1, out.norm2, out.mlp = self.norm1, self.norm2, self.mlp
+        out.norm1, out.norm2 = self.norm1, self.norm2
+        out.mlp, out.moe = self.mlp, self.moe
         out.attn = self.attn.with_config(acfg)
         return out
 
     def forward(self, x, *, positions, cache=None, cache_index=None,
-                block_table=None, chunk_lens=None):
+                block_table=None, chunk_lens=None, row_mask=None):
+        """-> (x, cache, aux): ``aux`` is the MoE load-balance loss, None
+        for a dense block.  ``row_mask`` (B, L) marks the rows the MoE
+        dispatch counts (None: all)."""
         out, cache = self.attn(self.norm1(x), positions=positions,
                                cache=cache, cache_index=cache_index,
                                block_table=block_table,
                                chunk_lens=chunk_lens)
         x = x + out
+        aux = None
         if self.mlp is not None:
             x = x + self.mlp(self.norm2(x))
-        return x, cache
+        elif self.moe is not None:
+            out, aux = self.moe(self.norm2(x), row_mask)
+            x = x + out
+        return x, cache, aux
 
 
 class Backbone(nn.Module):
@@ -191,13 +204,19 @@ class Backbone(nn.Module):
         return self.lm_head(h)
 
     def _run_blocks(self, x, *, positions, cache=None, cache_index=None,
-                    block_table=None, chunk_lens=None):
+                    block_table=None, chunk_lens=None, row_mask=None):
+        """-> (final-normed hidden, the MoE layers' aux losses summed in
+        layer order as a float32 scalar)."""
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
-            x, _ = layer(x, positions=positions,
-                         cache=None if cache is None else cache[i],
-                         cache_index=cache_index, block_table=block_table,
-                         chunk_lens=chunk_lens)
-        return self.final_norm(x)
+            x, _, aux = layer(x, positions=positions,
+                              cache=None if cache is None else cache[i],
+                              cache_index=cache_index,
+                              block_table=block_table,
+                              chunk_lens=chunk_lens, row_mask=row_mask)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return self.final_norm(x), aux_total
 
     def _demux_decode(self, h, index_embeds):
         """Decode-step demux of the (B, C, d) final hidden block ->
@@ -218,8 +237,8 @@ class Backbone(nn.Module):
         tokens: (B, N, L) when mux active else (B, L).
 
         Returns dict(hidden, demuxed, logits, index_embeds, aux, cache);
-        ``aux`` (the MoE load-balance loss) is a float32 zero for the
-        dense family;
+        ``aux`` is the MoE layers' load-balance loss summed (a float32
+        zero for the dense family);
         ``demuxed``/``logits`` are (B, N, L, ·) when mux active else
         (B, L, ·).  Passing a fresh ``cache`` (``init_cache``) makes this a
         prefill: the cache is filled in place, ready for ``decode_step``.
@@ -244,10 +263,10 @@ class Backbone(nn.Module):
 
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device).expand(b, x.shape[1])
-        h = self._run_blocks(x, positions=positions, cache=cache)
+        h, aux = self._run_blocks(x, positions=positions, cache=cache)
 
         out = {"hidden": h, "index_embeds": None, "cache": cache,
-               "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+               "aux": aux}
         if mux.active:
             if demux_s.uses_prefix:
                 index_embeds = h[:, :mux.n]      # p^i = h at prefix pos i
@@ -312,8 +331,15 @@ class Backbone(nn.Module):
                 x = x * lane_mask[:, :1, None].to(x.dtype)
 
         positions = torch.broadcast_to(ci[:, None] if ci.ndim else ci, (b, 1))
-        h = self._run_blocks(x, positions=positions, cache=cache,
-                             cache_index=ci, block_table=block_table)
+        # Row validity for the MoE dispatch: a slot with no live lane
+        # carries a garbage row that must not take an expert's capacity.
+        # Lock-step ``generate`` passes no lane_mask: every row is real.
+        row_mask = None
+        if lane_mask is not None:
+            row_mask = lane_mask.bool().any(dim=1)[:, None]      # (B, 1)
+        h, _ = self._run_blocks(x, positions=positions, cache=cache,
+                                cache_index=ci, block_table=block_table,
+                                row_mask=row_mask)
 
         if mux.active:
             demuxed = self._demux_decode(h, index_embeds)
@@ -347,9 +373,16 @@ class Backbone(nn.Module):
 
         positions = ci[:, None] + torch.arange(c, dtype=torch.int32,
                                                device=x.device)[None, :]
-        h = self._run_blocks(x, positions=positions, cache=cache,
-                             cache_index=ci, block_table=block_table,
-                             chunk_lens=chunk_lens)
+        # Row validity for the MoE dispatch: rows at or past a slot's
+        # chunk_lens are padding, and a row of a slot with no live lane at
+        # that chunk position is a garbage superposition.
+        row_mask = torch.arange(c, device=x.device)[None, :] < \
+            chunk_lens[:, None]                                   # (B, C)
+        if lane_mask is not None:
+            row_mask = row_mask & lane_mask.bool().any(dim=1)
+        h, _ = self._run_blocks(x, positions=positions, cache=cache,
+                                cache_index=ci, block_table=block_table,
+                                chunk_lens=chunk_lens, row_mask=row_mask)
 
         if mux.active:
             demuxed = self._demux_decode(h, index_embeds)

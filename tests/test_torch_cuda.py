@@ -568,6 +568,22 @@ def test_gemma3_smoke_paged_kernels_match_plain_path_on_card(cuda, chunk):
     one-token and in chunks of 4, the same tokens fed to both: logits
     within 1e-4 x max(1, max|plain|) at every step, and the paged kernel
     launched once per global layer and step."""
+    _smoke_paged_kernels_match_plain_path(cuda, "gemma3-4b", chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_llama4_smoke_paged_kernels_match_plain_path_on_card(cuda, chunk):
+    """llama4-scout-17b-a16e's smoke config (f32, every layer MoE: 4
+    experts top-1 and a shared expert; 4 query heads over 4 KV heads) the
+    same way: the paged pool with every kernel against the contiguous
+    plain path, logits within 1e-4 x max(1, max|plain|) at every step,
+    the paged kernel launched once per layer and step."""
+    _smoke_paged_kernels_match_plain_path(cuda, "llama4-scout-17b-a16e",
+                                          chunk)
+
+
+def _smoke_paged_kernels_match_plain_path(cuda, arch, chunk):
     import dataclasses
 
     import numpy as np
@@ -580,7 +596,7 @@ def test_gemma3_smoke_paged_kernels_match_plain_path_on_card(cuda, chunk):
     from repro_torch.serving.paging import PagedKVSlotAllocator
 
     b = 2
-    base = get_smoke_config("gemma3-4b", mux_n=2)
+    base = get_smoke_config(arch, mux_n=2)
     cfg = dataclasses.replace(
         base, mux=dataclasses.replace(base.mux, use_kernel=True),
         serving=ServingConfig(paged=True, page_size=8, use_kernel=True,
@@ -627,3 +643,100 @@ def test_gemma3_smoke_paged_kernels_match_plain_path_on_card(cuda, chunk):
     assert _build.LAUNCHES["paged_decode_attention"] == \
         n_global * (24 // chunk)
     assert _build.LAUNCHES["decode_demux"] == 24 // chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [2, 8])
+def test_moe_is_bitwise_repeatable_on_card(cuda, dtype, top_k):
+    """The MoE block (16 experts, sigmoid scoring, a shared expert, tokens
+    dropped at capacity 1.25) gives the same bits on every call: each
+    row's top-k contributions are added one choice at a time in ascending
+    expert order, with no float atomics; and its output is the CPU's on
+    the same weights and inputs in the same dtype (the router float32 in
+    both) within 1e-4 (f32) / 1e-2 (bf16) x max(1, max|CPU|)."""
+    from repro_torch.nn.moe import MoE, MoEConfig
+
+    cfg = MoEConfig(dim=256, moe_ff=128, n_experts=16, top_k=top_k,
+                    n_shared_experts=1, router_scoring="sigmoid")
+    cpu = MoE(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    cpu.to(dtype).router.float()
+    model = MoE(cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+                device=cuda, dtype=dtype).eval()
+    model.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 32, 256), generator=g).to(dtype)
+    mask = torch.rand((4, 32), generator=g) > 0.2
+    with torch.no_grad():
+        want, want_aux = cpu(x, mask)
+        want = want.float()
+        outs = [model(x.to(cuda), mask.to(cuda)) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out, aux in outs[1:]:
+        assert torch.equal(out, outs[0][0]) and torch.equal(aux, outs[0][1])
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    got = outs[0][0].float().cpu()
+    assert (got - want).abs().max().item() <= tol * max(
+        1.0, want.abs().max().item())
+    assert abs(float(outs[0][1]) - float(want_aux)) <= 1e-4 * max(
+        1.0, float(want_aux))
+
+
+# llama4-scout-17b-a16e's kernel shapes in chip_smoke.py's [moe] phase
+# (d 5120, H 10240, 40 heads over 8 KV heads of 128), bf16.
+LLAMA4_CARD = [
+    ("hadamard_mux", (8, 8, 1, 5120)), ("hadamard_mux", (8, 8, 4, 5120)),
+    ("hadamard_mux", (1, 8, 520, 5120)),
+    ("decode_demux", (8, 8, 1, 5120)), ("decode_demux", (8, 8, 4, 5120)),
+    ("index_embed_demux", (1, 8, 512, 5120)),
+    ("flash_attention", (1, 520, 40, 128)),
+    ("paged_decode_attention", (8, 1)), ("paged_decode_attention", (8, 4)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", LLAMA4_CARD)
+def test_kernels_at_llama4_shapes_on_card(cuda, name, shape):
+    """Each kernel at llama4-scout's shapes against its plain version run
+    in f32 on the same bf16 inputs, within 1e-2 x max(1, max|plain|) (the
+    paged kernel on query rows with a valid key)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def randn(*dims, scale=1.0):
+        return (scale * torch.randn(dims, generator=g, device=cuda)).to(bf16)
+
+    live = 1.0
+    if name == "hadamard_mux":
+        x, v = randn(*shape), randn(shape[1], shape[3])
+        want = mux_ref.hadamard_mux(x.float(), v.float())
+        got = mux_kernel.hadamard_mux(x, v)
+    elif name == "flash_attention":
+        q, k, v = (randn(*shape) for _ in range(3))
+        want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
+                                         causal=True)
+        got = flash_kernel.flash_attention(q, k, v, causal=True)
+    elif name == "paged_decode_attention":
+        b, c = shape
+        args = _paged_case(cuda, bf16, b, 40, 8, 128, b * 9 + 1, 16, 9, c)
+        f32 = [t.float() if t.is_floating_point() else t for t in args]
+        want = paged_ref.paged_attention(*f32, scale=128 ** -0.5,
+                                         causal=True)
+        got = paged_kernel.paged_decode_attention(*args, scale=128 ** -0.5,
+                                                  causal=True)
+        live = _live(args, causal=True, window=None)
+    else:
+        b, n, l, d = shape
+        hid = 2 * d
+        mlp = SharedMLPStack([2 * d, hid, d], device=cuda, dtype=bf16)
+        h, p = randn(b, l, d), randn(b, n, d)
+        l0, l1 = mlp.layers()
+        with torch.no_grad():
+            want = demux_ref.index_embed_demux(mlp.float(), h.float(),
+                                               p.float())
+            mlp.to(bf16)
+            got = getattr(demux_kernel, name)(h, p, l0.weight, l0.bias,
+                                              l1.weight, l1.bias)
+    torch.cuda.synchronize()
+    err = ((got.float() - want) * live).abs().max().item()
+    assert err <= 1e-2 * max(1.0, (want * live).abs().max().item())
