@@ -111,15 +111,25 @@ Phases, any failure of which ends the run with a non-zero exit:
      plain view (logits within LOGIT_TOL, task loss and ``moe_aux`` within
      EVAL_LOSS_TOL), eval-step times in turns, peak memory under 70 GB,
      and profiles of a scheduler step and an eval step with each MoE
-     stage's device time.
+     stage's device time;
+ 11. Multi-head Latent Attention: ``deepseek-v3-671b`` at full width (d
+     7168, MLA over 128 heads with a latent of 512 + rope 64 per token,
+     dense MLPs of 18432, 256 experts of 2048 sigmoid top-8 and a shared
+     expert, vocab 129280), 4 of its 61 layers (its 3 dense layers and
+     1 MoE layer: 30.8 GB of bf16 weights), N=8, served and evaluated as
+     in phase 10 with the latent rows in the page pool: the mux,
+     decode-demux and index-embed demux kernels on, the paged and flash
+     kernels never launched (MLA attends on the plain path, as in the
+     reference), the pool's bytes equal to ``paged_cache_bytes``, and the
+     MLA share of the profiled steps' device time printed.
 
 Phase 2 also holds the mux and both demux kernels at every shape phases
-8-10 launch them (d 2560, 3072, 5120 and 18432), the paged kernel at
+8-11 launch them (d 2560, 3072, 5120, 7168 and 18432), the paged kernel at
 gemma3-4b's chunked shape (64 rows x n_rep 2, hd 256) and llama4-scout's
 (n_rep 5, hd 128, C 1 and 4) and flash attention at the four models'
 shapes in phases 9 and 10 against their plain versions.  Each phase's
 seconds are printed.  The
-mux and demux launches of phases 3-9 record their shapes, and the run
+mux and demux launches of phases 3-11 record their shapes, and the run
 fails if one of them was not held in phase 2 (the launch plans are chosen
 from the shape).
 
@@ -322,7 +332,10 @@ def check_kernels(torch, gen):
             # slots, a chunk of 4 rows, the prime of the 8-token prefix,
             # the eval (512 tokens + the prefix)
             (8, 8, 1, 5120, bf16), (8, 8, 4, 5120, bf16),
-            (8, 8, 8, 5120, bf16), (1, 8, 520, 5120, bf16)):
+            (8, 8, 8, 5120, bf16), (1, 8, 520, 5120, bf16),
+            # deepseek-v3-671b's [mla] shapes, the same steps at d 7168
+            (8, 8, 1, 7168, bf16), (8, 8, 4, 7168, bf16),
+            (8, 8, 8, 7168, bf16), (1, 8, 520, 7168, bf16)):
         x32, v32 = randn(b, n, l, d), randn(n, d)
         for dtype in dtypes:
             x, v = x32.to(dtype), v32.to(dtype)
@@ -367,7 +380,11 @@ def check_kernels(torch, gen):
                     # of one row and chunks of 4, the eval
                     ("decode_demux", 8, 8, 1, 5120, 10240, bf16),
                     ("decode_demux", 8, 8, 4, 5120, 10240, bf16),
-                    ("index_embed_demux", 1, 8, 512, 5120, 10240, bf16))
+                    ("index_embed_demux", 1, 8, 512, 5120, 10240, bf16),
+                    # deepseek-v3-671b's [mla] shapes (d 7168, H 14336)
+                    ("decode_demux", 8, 8, 1, 7168, 14336, bf16),
+                    ("decode_demux", 8, 8, 4, 7168, 14336, bf16),
+                    ("index_embed_demux", 1, 8, 512, 7168, 14336, bf16))
     for name, b, n, l, d, hid, dtypes in demux_shapes:
         h32, p32 = randn(b, l, d), randn(b, n, d)
         w1_32, b1_32 = randn(hid, 2 * d, scale=(2 * d) ** -0.5), \
@@ -1194,16 +1211,23 @@ def device_rows(events, steps: int) -> list[tuple[float, str]]:
 def print_stages(events, steps: int, label: str) -> None:
     """Device ms per step of each profiler label of the MoE block
     (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
-    ``moe.shared``): the kernels launched inside the label."""
+    ``moe.shared``) and of MLA (``mla``): the kernels launched inside the
+    label; MLA's also as a share of the device's busy time."""
     from torch.autograd import DeviceType
 
     stages = sorted((e.key, e.device_time_total / 1e3 / steps, e.count)
-                    for e in events if e.key.startswith("moe.")
+                    for e in events if (e.key.startswith("moe.")
+                                        or e.key == "mla")
                     and e.device_type == DeviceType.CPU)
     if stages:
-        print(f"[profile] {label}: MoE stages, device ms per step: "
+        busy = sum(t for t, _ in device_rows(events, steps))
+        print(f"[profile] {label}: MoE and MLA stages, device ms per step: "
               + ", ".join(f"{key} {t:.4f} (x{count / steps:.0f})"
                           for key, t, count in stages))
+        for key, t, _ in stages:
+            if key == "mla" and busy:
+                print(f"[profile] {label}: MLA share of device busy time "
+                      f"{t / busy:.4f} ({t:.4f} of {busy:.4f} ms)")
 
 
 def profile_scheduler(torch, sched, trace, warm: int = 12, steps: int = 8,
@@ -2279,7 +2303,8 @@ class RoutingTape:
     capacity slot to such a row, and may occur only in a call that has
     one."""
 
-    def __init__(self):
+    def __init__(self, tag: str = "[moe]"):
+        self.tag = tag
         self.mode, self.calls, self.at = None, [], 0
         self.rows = self.id_rows = self.keep_rows = self.calls_differing = 0
         self.worst = 0.0                  # largest gap / threshold of a diff
@@ -2298,7 +2323,7 @@ class RoutingTape:
             elif self.mode == "replay":
                 rec = self.calls[self.at]
                 if rec["ids"].shape != top_ids.shape:
-                    raise SystemExit(f"[moe] FAIL: MoE call {self.at} has "
+                    raise SystemExit(f"{self.tag} FAIL: MoE call {self.at} has "
                                      f"{tuple(top_ids.shape)} rows x choices "
                                      f"in the plain run, "
                                      f"{tuple(rec['ids'].shape)} in the "
@@ -2348,16 +2373,22 @@ class RoutingTape:
                 self.worst = max(self.worst, ratio)
                 if not ratio <= 1.0:
                     raise SystemExit(
-                        f"[moe] FAIL: MoE call {self.at}: a row routed "
+                        f"{self.tag} FAIL: MoE call {self.at}: a row routed "
                         f"differently from the kernel run is not a near-tie "
                         f"(router gap {ratio:.3f} x the threshold)")
             if n_keep and not n_ids:
-                raise SystemExit(f"[moe] FAIL: MoE call {self.at}: keep flags "
+                raise SystemExit(f"{self.tag} FAIL: MoE call {self.at}: keep flags "
                                  f"differ with no row routed differently")
             self.at += 1
             return out
 
+        self._real = (real_route, real_dispatch)
         moe.route, moe.dispatch = route, dispatch
+
+    def uninstall(self):
+        from repro_torch.nn import moe
+
+        moe.route, moe.dispatch = self._real
 
     def start(self, mode: str) -> None:
         if mode == "record":
@@ -2387,30 +2418,95 @@ def run_moe(torch, seed: int):
     """llama4-scout-17b-a16e at full width (d 5120, 40 heads over 8 KV
     heads, 16 experts of 8192 top-1 and a shared expert, vocab 202048),
     8 of its 48 layers, N = 8, bf16, weights from ``seed``, the config's
-    own capacity_factor 1.25.  Serving: ``ContinuousScheduler`` on the
-    paged pool (page_size 16, 8 slots) with the mux, decode-demux and
-    paged kernels serves a 40-request Poisson trace (prompt 32, 16 new
-    tokens) at prefill_chunk 1 and 4; a contiguous plain run over a
+    own capacity_factor 1.25, through ``serve_and_eval_moe``."""
+    from repro_torch.configs.registry import get_config
+
+    full = get_config("llama4-scout-17b-a16e", mux_n=8)
+    base = dataclasses.replace(full, n_layers=MOE_LAYERS)
+
+    def describe(model, weights, router):
+        moe = base.moe
+        print(f"[moe] {base.name}: d={base.d_model}, {base.n_heads} heads of "
+              f"{base.head_dim_} over {base.n_kv_heads} KV heads, "
+              f"{moe.n_experts} experts of {moe.moe_ff} top-{moe.top_k} "
+              f"({moe.router_scoring}, capacity_factor "
+              f"{moe.capacity_factor}) + {moe.n_shared_experts} shared, "
+              f"vocab {base.vocab}, N={base.mux.n}, {base.dtype} (router "
+              f"{sorted(map(str, router))}), {weights / 1e9:.2f} GB of "
+              f"weights; reduced: {MOE_LAYERS} of {full.n_layers} layers")
+
+    return serve_and_eval_moe(torch, seed, base, "[moe]", describe)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: MLA in deepseek-v3-671b
+# ---------------------------------------------------------------------------
+
+MLA_LAYERS = 4            # of deepseek's 61: its 3 dense layers and 1 MoE
+
+
+def run_mla(torch, seed: int):
+    """deepseek-v3-671b at full width (d 7168, MLA over 128 heads: q rank
+    1536, latent 512 + rope 64 per token, nope 128, v 128; dense layers of
+    18432; 256 experts of 2048 sigmoid top-8 and a shared expert; vocab
+    129280), 4 of its 61 layers (the 3 dense ones and 1 MoE), N = 8,
+    bf16, weights from ``seed``, through ``serve_and_eval_moe``: the
+    latent rows in the page pool, the mux, decode-demux and index-embed
+    demux kernels on, and neither the paged nor the flash kernel
+    launched (MLA attends on the plain path, as in the reference)."""
+    from repro_torch.configs.registry import get_config
+
+    full = get_config("deepseek-v3-671b", mux_n=8)
+    base = dataclasses.replace(full, n_layers=MLA_LAYERS)
+
+    def describe(model, weights, router):
+        m, moe = base.mla, base.moe
+        mla = sum(p.numel() for n, p in model.named_parameters()
+                  if ".attn." in n) // base.n_layers
+        kinds = [f"{k['mixer']}+{k['mlp']}" for k in base.layer_kinds()]
+        print(f"[mla] {base.name}: d={base.d_model}, MLA over {m.n_heads} "
+              f"heads (q rank {m.q_lora_rank}, latent {m.kv_lora_rank} + "
+              f"rope {m.qk_rope_head_dim} = {m.cache_width} per token, "
+              f"nope {m.qk_nope_head_dim}, v {m.v_head_dim}; "
+              f"{mla / 1e6:.1f} M parameters a layer), dense MLP "
+              f"{base.d_ff}, {moe.n_experts} experts of {moe.moe_ff} "
+              f"top-{moe.top_k} ({moe.router_scoring}, capacity_factor "
+              f"{moe.capacity_factor}) + {moe.n_shared_experts} shared, "
+              f"vocab {base.vocab}, N={base.mux.n}, {base.dtype} (router "
+              f"{sorted(map(str, router))}), {weights / 1e9:.2f} GB of "
+              f"weights; layers {kinds}; reduced: {MLA_LAYERS} of "
+              f"{full.n_layers} layers")
+
+    return serve_and_eval_moe(torch, seed, base, "[mla]", describe)
+
+
+def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
+    """An MoE model ``base`` at full width, N = 8, bf16, weights from
+    ``seed``.  Serving: ``ContinuousScheduler`` on the paged pool
+    (page_size 16, 8 slots) with the mux, decode-demux and (for attention
+    layers) paged kernels serves a 40-request Poisson trace (prompt 32, 16
+    new tokens) at prefill_chunk 1 and 4; a contiguous plain run over a
     ``with_config`` view replays the kernel run's sampled tokens and its
-    routing (``RoutingTape``): equal decode steps and tokens, every
-    step's logits within LOGIT_TOL, greedy picks equal where clear; a
-    paged plain run (tokens replayed) gives the same steps and peak
-    pages.  Evaluation: ``make_eval_step`` through flash and the mux and
-    demux kernels (1 group, L 512) against the plain view with the
+    routing (``RoutingTape``): equal decode steps and tokens, every step's
+    logits within LOGIT_TOL, greedy picks equal where clear; a paged plain
+    run (tokens replayed) gives the same steps and peak pages; the pool
+    holds ``paged_cache_bytes`` bytes.  Evaluation: ``make_eval_step``
+    through a ``use_flash`` view (flash on attention layers) and the mux
+    and demux kernels (1 group, L 512) against the plain view with the
     routing replayed: logits within LOGIT_TOL, task loss and ``moe_aux``
     within EVAL_LOSS_TOL.  Peak memory under 70 GB; eval-step times on and
     off in turns; profiles of a scheduler step and an eval step with the
-    MoE stages' device time."""
+    MoE stages' and MLA's device time."""
     import gc
 
     from repro_torch.configs.base import ServingConfig
-    from repro_torch.configs.registry import get_config
     from repro_torch.core.retrieval import retrieval_index
     from repro_torch.data import RetrievalTask, mux_batches
     from repro_torch.kernels import _build
     from repro_torch.models import Backbone
     from repro_torch.nn.moe import capacity
     from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kvcache import cache_nbytes, paged_cache_bytes
     from repro_torch.serving.scheduler import (ContinuousScheduler,
                                                poisson_trace)
     from repro_torch.training.trainer import TrainConfig, Trainer
@@ -2420,9 +2516,10 @@ def run_moe(torch, seed: int):
     torch.cuda.reset_peak_memory_stats()
     batch, n_requests, rate, prompt_len, gen_len = 8, 40, 8.0, 32, 16
     max_total = prompt_len * 2 + gen_len * 4 + 1
-    full = get_config("llama4-scout-17b-a16e", mux_n=8)
-    base = dataclasses.replace(full, n_layers=MOE_LAYERS)
     moe = base.moe
+    kinds = base.layer_kinds()
+    n_attn = sum(k["mixer"] == "attn" for k in kinds)
+    n_moe = sum(k["mlp"] == "moe" for k in kinds)
     kernels = dataclasses.replace(
         base, mux=dataclasses.replace(base.mux, use_kernel=True),
         serving=ServingConfig(paged=True, page_size=16, use_kernel=True,
@@ -2430,25 +2527,24 @@ def run_moe(torch, seed: int):
     model = Backbone(kernels, seed=seed, device="cuda").eval()
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     router = {p.dtype for n, p in model.named_parameters() if "router" in n}
-    print(f"[moe] {base.name}: d={base.d_model}, {base.n_heads} heads of "
-          f"{base.head_dim_} over {base.n_kv_heads} KV heads, "
-          f"{moe.n_experts} experts of {moe.moe_ff} top-{moe.top_k} "
-          f"({moe.router_scoring}, capacity_factor {moe.capacity_factor}) "
-          f"+ {moe.n_shared_experts} shared, vocab {base.vocab}, "
-          f"N={base.mux.n}, {base.dtype} (router {sorted(map(str, router))})"
-          f", {weights / 1e9:.2f} GB of weights; reduced: {MOE_LAYERS} of "
-          f"{full.n_layers} layers")
+    describe(model, weights, router)
+    # The weights are drawn in float32 and then cast, so the draw of the
+    # largest tensor (an expert stack) sets a peak of its own.
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{tag} peak memory while the weights were drawn {init_peak:.2f} "
+          f"GB (float32 draws, then the cast)")
     if router != {torch.float32}:
-        raise SystemExit("[moe] FAIL: the router weight is not float32")
+        raise SystemExit(f"{tag} FAIL: the router weight is not float32")
     trace = poisson_trace(n_requests, rate=rate, prompt_len=prompt_len,
                           gen_len=gen_len, vocab=base.vocab,
                           max_total=max_total, seed=seed)
-    print(f"[moe] poisson_trace({n_requests}, rate={rate}, prompt_len="
+    print(f"{tag} poisson_trace({n_requests}, rate={rate}, prompt_len="
           f"{prompt_len}, gen_len={gen_len}, max_total={max_total}), batch "
           f"{batch}, page_size 16; capacity per expert at a decode step of "
           f"{batch} rows: {capacity(batch, moe)}, at a chunk of 4 rows: "
           f"{capacity(4 * batch, moe)}")
-    tape = RoutingTape()
+    tape = RoutingTape(tag)
     tape.install()
 
     def scheduler(m, chunk):
@@ -2474,10 +2570,10 @@ def run_moe(torch, seed: int):
         stats = sched.run([r.fresh() for r in trace])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        tape.finish("[moe]")
+        tape.finish(tag)
         run_launches = dict(_build.LAUNCHES)
         alloc = sched.allocator
-        print(f"[moe] prefill_chunk {chunk}: {stats.finished}/{n_requests} "
+        print(f"{tag} prefill_chunk {chunk}: {stats.finished}/{n_requests} "
               f"requests, {stats.decode_steps} decode steps, "
               f"{stats.generated_tokens} tokens in {dt:.4f} s = "
               f"{stats.generated_tokens / dt:.1f} tok/s, "
@@ -2486,21 +2582,32 @@ def run_moe(torch, seed: int):
               f"{alloc.table.usable_pages} pages; {len(tape.calls)} MoE "
               f"calls; kernel launches {run_launches}")
         if stats.finished != n_requests:
-            raise SystemExit("[moe] FAIL: not every request finished")
+            raise SystemExit(f"{tag} FAIL: not every request finished")
         if alloc.table.pages_in_use != alloc.n_prefix_pages * batch:
-            raise SystemExit("[moe] FAIL: pages leaked after the drain")
+            raise SystemExit(f"{tag} FAIL: pages leaked after the drain")
+        pool_bytes = cache_nbytes(alloc.cache)
+        want_bytes = paged_cache_bytes(base, batch, alloc.max_len,
+                                       pool_pages=alloc.pool_pages,
+                                       page_size=alloc.page_size)
+        print(f"{tag} prefill_chunk {chunk}: pool {pool_bytes} bytes "
+              f"({alloc.pool_pages} pages of {alloc.page_size}, "
+              f"{alloc.page_bytes()} bytes a page over {len(kinds)} "
+              f"layers), paged_cache_bytes {want_bytes}")
+        if pool_bytes != want_bytes:
+            raise SystemExit(f"{tag} FAIL: the pool's bytes are not "
+                             f"paged_cache_bytes'")
         if run_launches.get("paged_decode_attention", 0) != \
-                base.n_layers * stats.decode_steps:
-            raise SystemExit(f"[moe] FAIL: paged_decode_attention launched "
+                n_attn * stats.decode_steps:
+            raise SystemExit(f"{tag} FAIL: paged_decode_attention launched "
                              f"{run_launches.get('paged_decode_attention')} "
                              f"times, expected "
-                             f"{base.n_layers * stats.decode_steps}")
+                             f"{n_attn * stats.decode_steps}")
         for name in ("hadamard_mux", "decode_demux"):
             if not run_launches.get(name):
-                raise SystemExit(f"[moe] FAIL: {name} never launched")
-        if len(tape.calls) != base.n_layers * (stats.decode_steps + 1):
-            raise SystemExit(f"[moe] FAIL: {len(tape.calls)} MoE calls, "
-                             f"expected one per layer and step and the "
+                raise SystemExit(f"{tag} FAIL: {name} never launched")
+        if len(tape.calls) != n_moe * (stats.decode_steps + 1):
+            raise SystemExit(f"{tag} FAIL: {len(tape.calls)} MoE calls, "
+                             f"expected one per MoE layer and step and the "
                              f"prime's")
         for name, count in run_launches.items():
             launches[name] = launches.get(name, 0) + count
@@ -2515,13 +2622,13 @@ def run_moe(torch, seed: int):
                               every_step=True)
         pstats = psched.run([r.fresh() for r in trace])
         torch.cuda.synchronize()
-        tape.finish(f"[moe] prefill_chunk {chunk}")
+        tape.finish(f"{tag} prefill_chunk {chunk}")
         ppsched = scheduler(paged_plain, chunk)
         ppsched.sampling = Replay(ppsched.sampling, outputs)
         ppstats = ppsched.run([r.fresh() for r in trace])
         torch.cuda.synchronize()
         if _build.LAUNCHES:
-            raise SystemExit(f"[moe] FAIL: the plain path launched "
+            raise SystemExit(f"{tag} FAIL: the plain path launched "
                              f"{dict(_build.LAUNCHES)}")
         for what, a, b in (
                 ("decode steps (contiguous plain)", stats.decode_steps,
@@ -2532,18 +2639,18 @@ def run_moe(torch, seed: int):
                  ppstats.decode_steps),
                 ("peak pages (paged plain)", stats.peak_pages,
                  ppstats.peak_pages)):
-            print(f"[moe] prefill_chunk {chunk} {what}: kernels {a}, "
+            print(f"{tag} prefill_chunk {chunk} {what}: kernels {a}, "
                   f"plain {b}")
             if a != b:
-                raise SystemExit(f"[moe] FAIL: prefill_chunk {chunk} {what} "
+                raise SystemExit(f"{tag} FAIL: prefill_chunk {chunk} {what} "
                                  f"differ")
-        check_forced(f"[moe] prefill_chunk {chunk}", forced, pforced)
-        check_replay(f"[moe] prefill_chunk {chunk}", psched.sampling)
+        check_forced(f"{tag} prefill_chunk {chunk}", forced, pforced)
+        check_replay(f"{tag} prefill_chunk {chunk}", psched.sampling)
         del forced, pforced, sched, psched, ppsched
         gc.collect()
     serve_peak = torch.cuda.max_memory_allocated() / 1e9
     profile_scheduler(torch, scheduler(model, 1), trace, warm=8, steps=4,
-                      label="moe scheduler step")
+                      label=f"{tag[1:-1]} scheduler step")
 
     # Evaluation through flash and the mux and demux kernels against the
     # plain view, the plain run replaying the kernel run's routing.
@@ -2569,13 +2676,15 @@ def run_moe(torch, seed: int):
         logits = flash(batch_["tokens"])["logits"]
     torch.cuda.synchronize()
     eval_launches = dict(_build.LAUNCHES)
-    tape.finish("[moe]")
-    want = {"flash_attention": 2 * base.n_layers, "hadamard_mux": 2,
+    tape.finish(tag)
+    # flash on the attention layers only: MLA never goes through it
+    want = {"flash_attention": 2 * n_attn, "hadamard_mux": 2,
             "index_embed_demux": 2}
-    print(f"[moe] eval (1 group, L {seq_len}): kernel launches in one eval "
+    want = {name: count for name, count in want.items() if count}
+    print(f"{tag} eval (1 group, L {seq_len}): kernel launches in one eval "
           f"step and one forward {eval_launches}")
     if eval_launches != want:
-        raise SystemExit(f"[moe] FAIL: eval launches {eval_launches}, "
+        raise SystemExit(f"{tag} FAIL: eval launches {eval_launches}, "
                          f"expected {want}")
     for name, count in eval_launches.items():
         launches[name] = launches.get(name, 0) + count
@@ -2584,41 +2693,43 @@ def run_moe(torch, seed: int):
     with torch.inference_mode():
         plain_logits = plain(batch_["tokens"])["logits"]
     torch.cuda.synchronize()
-    tape.finish("[moe] eval")
+    tape.finish(f"{tag} eval")
     n = base.mux.n
     err = max((logits[:, i].float() - plain_logits[:, i].float())
               .abs().max().item() for i in range(n))
     tol = LOGIT_TOL * plain_logits.abs().max().item()
     agree = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
-    print(f"[moe] eval logits {tuple(logits.shape)}, flash + kernels vs "
+    print(f"{tag} eval logits {tuple(logits.shape)}, flash + kernels vs "
           f"plain: max_abs_err {err:.4g} (tol {tol:.4g}), greedy tokens "
           f"agree {agree.item():.4f}")
     if not (err <= tol and bool(logits.isfinite().all())):
-        raise SystemExit("[moe] FAIL: eval logits disagree")
+        raise SystemExit(f"{tag} FAIL: eval logits disagree")
     del logits, plain_logits
     for key in ("task_loss", "retr_loss", "moe_aux"):
         got, ref = float(metrics[key]), float(plain_metrics[key])
         rel = abs(got - ref) / abs(ref)
-        print(f"[moe] eval {key}: flash + kernels {got:.6g}, plain "
+        print(f"{tag} eval {key}: flash + kernels {got:.6g}, plain "
               f"{ref:.6g}, relative diff {rel:.3g} (tol {EVAL_LOSS_TOL})")
         if not (rel <= EVAL_LOSS_TOL and math.isfinite(got)):
-            raise SystemExit(f"[moe] FAIL: eval {key} disagrees")
+            raise SystemExit(f"{tag} FAIL: eval {key} disagrees")
     walls = {"flash + kernels": [], "plain": []}
     runs = {"flash + kernels": (step, state), "plain": (plain_step, pstate)}
     for label in ("flash + kernels", "plain") * 2:           # in turns
         fn, st = runs[label]
         walls[label].append(eval_step_ms(torch, fn, st, [batch_], [index]))
-    peak_gb = max(serve_peak, torch.cuda.max_memory_allocated() / 1e9)
-    print("[moe] eval step wall ms (in turns): "
+    peak_gb = max(init_peak, serve_peak,
+                  torch.cuda.max_memory_allocated() / 1e9)
+    print(f"{tag} eval step wall ms (in turns): "
           + ", ".join(f"{label} {[round(t, 3) for t in w]}"
                       for label, w in walls.items())
           + f"; peak memory of the phase {peak_gb:.2f} GB (serving "
           f"{serve_peak:.2f} GB)")
     if not peak_gb < 70:
-        raise SystemExit(f"[moe] FAIL: peak memory {peak_gb:.2f} GB")
+        raise SystemExit(f"{tag} FAIL: peak memory {peak_gb:.2f} GB")
     profile_eval(torch, step, state, batch_, index,
                  statistics.median(walls["flash + kernels"]),
-                 label="moe eval step")
+                 label=f"{tag[1:-1]} eval step")
+    tape.uninstall()
     del state, pstate, model, plain, paged_plain, flash
     return launches
 
@@ -2657,7 +2768,8 @@ def main(argv=None) -> int:
     for phase, run in (("slice", run_slice), ("paged", run_paged_slice),
                        ("eval", run_eval), ("router", run_router),
                        ("train", run_train), ("window", run_window),
-                       ("dense", run_dense), ("moe", run_moe)):
+                       ("dense", run_dense), ("moe", run_moe),
+                       ("mla", run_mla)):
         t0 = time.perf_counter()
         by_phase[phase] = run(torch, args.seed)
         print(f"[time] phase [{phase}]: {time.perf_counter() - t0:.1f} s")

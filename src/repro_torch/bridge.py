@@ -16,7 +16,9 @@ JAX nor the reference package.  Mapping:
   * every other leaf keeps its name and value (``embed.table``,
     ``mux.v``, ``demux.prefix_table``, norm ``scale``/``bias``, an MoE
     layer's expert stacks ``moe.up`` / ``moe.gate`` (E, d, f) and
-    ``moe.down`` (E, f, d), ...); an MoE router ``{"w": (d, E)}`` is a
+    ``moe.down`` (E, f, d), ...); an MLA layer's six Linears sit under
+    ``attn`` as an attention layer's four do (``attn.wq_a``, ``wq_b``,
+    ``wkv_a``, ``wk_b``, ``wv_b``, ``wo``); an MoE router ``{"w": (d, E)}`` is a
     Linear like any other (``moe.router.weight`` (E, d)) and keeps its
     float32.
 
@@ -27,7 +29,8 @@ n_classes)}`` (cls/tag tasks) is not a backbone weight: it becomes
 
 A cache pytree has the same head / scanned blocks / tail split, with one
 dict of leaves per layer (``k``/``v``/``pos`` contiguous, or
-``k_pages``/``v_pages``/``pos`` paged); ``cache_from_jax`` splits it into
+``k_pages``/``v_pages``/``pos`` paged; an MLA layer's ``ckv``/``krope``/
+``pos`` or ``ckv_pages``/``krope_pages``/``pos``); ``cache_from_jax`` splits it into
 one such dict of tensors per layer, in layer order.
 
 An optimizer state ``{"mu", "nu", "step"}`` holds trees of the params'

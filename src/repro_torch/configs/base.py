@@ -2,9 +2,10 @@
 
 ``MuxConfig`` and ``ServingConfig`` keep the reference's fields and
 defaults, so one set of values describes a run in both packages.
-``ModelConfig`` keeps the fields of the dense and MoE families, the ones
-the port's backbone runs so far.  Strategy names are validated against
-the port's own registry (``repro_torch.core.strategies``).
+``ModelConfig`` keeps the fields of the dense and MoE families (MLA
+mixers included), the ones the port's backbone runs so far.  Strategy
+names are validated against the port's own registry
+(``repro_torch.core.strategies``).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.nn.attention import AttnConfig
+from repro_torch.nn.attention import AttnConfig, MLAConfig
 from repro_torch.nn.moe import MoEConfig
 
 DTYPES = {
@@ -170,6 +171,7 @@ class ModelConfig:
     moe: MoEConfig | None = None
     moe_layer_start: int = 0         # layers < start are dense MLP
     moe_every: int = 1               # every k-th layer (within MoE region) is MoE
+    mla: MLAConfig | None = None     # MLA (DeepSeek) mixers on every layer
     norm: str = "rmsnorm"
     activation: str = "silu"
     gated_mlp: bool = True
@@ -244,17 +246,19 @@ class ModelConfig:
             kblock_pages=self.serving.kblock_pages)
 
     def layer_kinds(self) -> list[dict]:
-        """Static per-layer structure, by the reference's rules: every
-        layer is attention followed by an MLP when ``d_ff`` or ``moe`` is
-        set; the MLP of layer i is MoE iff ``moe`` is set, ``i >=
-        moe_layer_start`` and ``(i - moe_layer_start) % moe_every == 0``,
-        and dense otherwise; with a ``window``, layer i is global (no
-        window) iff ``global_every`` and ``(i + 1) % global_every == 0``,
-        and local (``window``) otherwise."""
+        """Static per-layer structure, by the reference's rules: each
+        layer's mixer is MLA when ``mla`` is set, else attention, followed
+        by an MLP when ``d_ff`` or ``moe`` is set; the MLP of layer i is
+        MoE iff ``moe`` is set, ``i >= moe_layer_start`` and ``(i -
+        moe_layer_start) % moe_every == 0``, and dense otherwise; with a
+        ``window``, an attention layer i is global (no window) iff
+        ``global_every`` and ``(i + 1) % global_every == 0``, and local
+        (``window``) otherwise."""
+        mixer = "attn" if self.mla is None else "mla"
         kinds = []
         for i in range(self.n_layers):
             window = None
-            if self.window is not None and not (
+            if mixer == "attn" and self.window is not None and not (
                     self.global_every and (i + 1) % self.global_every == 0):
                 window = self.window
             mlp = None
@@ -263,7 +267,7 @@ class ModelConfig:
                 if (self.moe is not None and i >= self.moe_layer_start and
                         (i - self.moe_layer_start) % self.moe_every == 0):
                     mlp = "moe"
-            kinds.append(dict(mixer="attn", mlp=mlp, window=window))
+            kinds.append(dict(mixer=mixer, mlp=mlp, window=window))
         return kinds
 
     def layer_pattern(self) -> tuple[int, int, int]:

@@ -2,7 +2,8 @@
 
 The port registers the archs of the dense family: the paper's T-MUX
 (three sizes), qwen1.5-4b, gemma-7b, gemma3-4b (sliding-window local
-layers) and nemotron-4-340b; and of the MoE family, llama4-scout-17b-a16e.
+layers) and nemotron-4-340b; and of the MoE family, llama4-scout-17b-a16e
+and deepseek-v3-671b (MLA mixers).
 The smoke rules are the reference's
 (``repro.configs.registry.get_smoke_config``) for these archs.
 """
@@ -10,11 +11,14 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (gemma3_4b, gemma_7b, llama4_scout_17b_a16e,
-                                 nemotron_4_340b, qwen1_5_4b, tmux_12l_768h)
+from repro_torch.configs import (deepseek_v3_671b, gemma3_4b, gemma_7b,
+                                 llama4_scout_17b_a16e, nemotron_4_340b,
+                                 qwen1_5_4b, tmux_12l_768h)
 from repro_torch.configs.base import ModelConfig
+from repro_torch.nn.attention import MLAConfig
 
 ARCHS: dict[str, ModelConfig] = {
+    "deepseek-v3-671b": deepseek_v3_671b.CONFIG,
     "gemma-7b": gemma_7b.CONFIG,
     "gemma3-4b": gemma3_4b.CONFIG,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
@@ -44,7 +48,8 @@ def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
     """Reduced same-family variant: 4 layers, d_model <= 256, 4 heads,
     vocab 512, float32; a windowed arch keeps window 16 with every 2nd
     layer global; an MoE arch keeps 4 experts of width 2 * d_model, top-k
-    at most 2, and its MoE layers from layer 1 at the latest."""
+    at most 2, and its MoE layers from layer 1 at the latest; an MLA arch
+    keeps q rank 64, latent 32, nope 32, rope 16 and v 32 per head."""
     cfg = get_config(arch)
     d = min(cfg.d_model, 256)
     heads = 4
@@ -53,6 +58,10 @@ def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
     kw: dict = {}
     if cfg.global_every:
         kw.update(window=16, global_every=2)
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(dim=d, n_heads=heads, q_lora_rank=64,
+                              kv_lora_rank=32, qk_nope_head_dim=32,
+                              qk_rope_head_dim=16, v_head_dim=32)
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(
             cfg.moe, dim=d, moe_ff=2 * d, n_experts=4,

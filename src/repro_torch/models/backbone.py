@@ -1,5 +1,5 @@
 """Multiplexed backbone — the port of ``repro.models.backbone`` for the
-dense and MoE families.
+dense and MoE families (attention or MLA mixers).
 
 DataMUX is integrated as in the reference: token embedding → prefix
 protocol → mux strategy → attention + MLP blocks → demux strategy →
@@ -18,23 +18,32 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.strategies import get_demux, get_mux
 from repro_torch.device import resolve_device
-from repro_torch.nn.attention import Attention, paged_eligible
+from repro_torch.nn.attention import MLA, Attention, paged_eligible
 from repro_torch.nn.layers import MLP, Embedding, Linear, make_norm
 from repro_torch.nn.moe import MoE
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                dtype=None, page_pool=None) -> list[dict]:
-    """One K/V cache per layer: contiguous, ``max_len`` rows per slot (a
-    windowed layer: its ring of ``min(window, max_len)`` rows); or, with
-    ``page_pool`` = (pool_pages, page_size), a page pool shared by every
-    slot (see ``serving/paging.py``) for each layer that ``paged_eligible``
-    admits, the others keeping their contiguous caches."""
+    """One cache per layer (K/V for attention, latent rows for MLA):
+    contiguous, ``max_len`` rows per slot (a windowed layer: its ring of
+    ``min(window, max_len)`` rows); or, with ``page_pool`` = (pool_pages,
+    page_size), a page pool shared by every slot (see
+    ``serving/paging.py``) for each layer that ``paged_eligible`` admits,
+    the others keeping their contiguous caches."""
     dtype = dtype or cfg.compute_dtype
     caches = []
     for kind in cfg.layer_kinds():
+        paged = page_pool is not None and paged_eligible(kind["window"],
+                                                         max_len)
+        if kind["mixer"] == "mla":
+            caches.append(
+                MLA.init_paged_cache(cfg.mla, *page_pool, dtype, device)
+                if paged else
+                MLA.init_cache(cfg.mla, batch, max_len, dtype, device))
+            continue
         acfg = cfg.attn_config(window=kind["window"])
-        if page_pool is not None and paged_eligible(kind["window"], max_len):
+        if paged:
             caches.append(Attention.init_paged_cache(acfg, *page_pool, dtype,
                                                      device))
         else:
@@ -44,17 +53,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP (dense or MoE) residual block."""
+    """Pre-norm attention (or MLA) + MLP (dense or MoE) residual block."""
 
     def __init__(self, cfg: ModelConfig, kind: dict, *, generator, device,
                  dtype, use_flash: bool = False):
         super().__init__()
         norm = make_norm(cfg.norm)
         self.norm1 = norm(cfg.d_model, device=device, dtype=dtype)
-        self.attn = Attention(cfg.attn_config(window=kind["window"],
-                                              use_flash=use_flash),
-                              generator=generator, device=device,
-                              dtype=dtype)
+        if kind["mixer"] == "mla":
+            # MLA never goes through the flash kernel (as in the reference)
+            self.attn = MLA(cfg.mla, generator=generator, device=device,
+                            dtype=dtype)
+        else:
+            self.attn = Attention(cfg.attn_config(window=kind["window"],
+                                                  use_flash=use_flash),
+                                  generator=generator, device=device,
+                                  dtype=dtype)
         self.norm2 = self.mlp = self.moe = None
         if kind["mlp"] is not None:
             self.norm2 = norm(cfg.d_model, device=device, dtype=dtype)
@@ -67,12 +81,15 @@ class Block(nn.Module):
                            dtype=dtype)
 
     def with_attn_config(self, acfg) -> "Block":
-        """This block's weights (shared) with its attention under ``acfg``."""
+        """This block's weights (shared) with its attention under ``acfg``;
+        an MLA mixer, which no attention setting reaches, is shared as it
+        is."""
         out = Block.__new__(Block)
         nn.Module.__init__(out)
         out.norm1, out.norm2 = self.norm1, self.norm2
         out.mlp, out.moe = self.mlp, self.moe
-        out.attn = self.attn.with_config(acfg)
+        out.attn = self.attn if isinstance(self.attn, MLA) else \
+            self.attn.with_config(acfg)
         return out
 
     def forward(self, x, *, positions, cache=None, cache_index=None,
@@ -99,8 +116,8 @@ class Backbone(nn.Module):
     ``device`` (the GPU unless the caller asks for another device).
     ``use_flash`` routes each layer's cache-free causal attention through
     the flash kernel (``cfg.attn_config(use_flash=True)``); prefill and
-    decode, which write a cache, bidirectional attention and windowed
-    (local) layers are unaffected."""
+    decode, which write a cache, bidirectional attention, windowed
+    (local) layers and MLA layers are unaffected."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
                  use_flash: bool = False):

@@ -1,5 +1,6 @@
-"""Multi-head attention (MHA / GQA / MQA) with RoPE — the port of the
-reference's ``Attention`` class (``repro.nn.attention``).
+"""Multi-head attention (MHA / GQA / MQA) with RoPE and DeepSeek's
+Multi-head Latent Attention — the port of the reference's ``Attention`` and
+``MLA`` classes (``repro.nn.attention``).
 
 Modes, chosen by the arguments as in the reference:
 
@@ -33,7 +34,9 @@ Caches are dicts of tensors {"k", "v": (B, S, KVH, hd), "pos": (B, S)
 int32, -1 = unwritten}, or page pools {"k_pages", "v_pages": (P, ps, KVH,
 hd), "pos": (P, ps)}.  Where the reference returns a new cache (and the
 serving engine donates the old one), the port writes into the given cache
-in place and returns that same dict.
+in place and returns that same dict.  ``MLA`` takes the same modes over a
+latent cache {"ckv": (B, S, r), "krope": (B, S, rope), "pos"} or pool
+{"ckv_pages", "krope_pages", "pos"} (see its docstring).
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from repro_torch.nn.layers import Linear
+from repro_torch.nn.layers import Linear, profiler_label
 
 NEG_INF = -1e30
 
@@ -464,3 +467,288 @@ class Attention(nn.Module):
         return dot_product_attention(
             q, _repeat_kv(k_att, n_rep), _repeat_kv(v_att, n_rep), mask,
             self.cfg.scale)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V3, arXiv:2412.19437)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    dim: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def scale(self) -> float:
+        return self.qk_head_dim ** -0.5
+
+    @property
+    def cache_width(self) -> int:
+        """Cache row per token: the latent and the shared rope key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+class MLA(nn.Module):
+    """DeepSeek MLA: low-rank compressed Q and KV.  The decode cache holds
+    each token's (kv_lora_rank + rope) latent row instead of per-head K/V,
+    and decode attends in the latent space (``_absorbed_attention``).
+
+    As in the reference, the compressed latents are not normalised, RoPE
+    rotates split halves of the rope part of each head and of the shared
+    key, and the full-sequence forward and the prefill expand the latents
+    to per-head K (nope + rope) and V and attend on the plain path: MLA
+    never goes through the flash or the paged kernel."""
+
+    def __init__(self, cfg: MLAConfig, *, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        h, r = cfg.n_heads, cfg.kv_lora_rank
+        self.wq_a = Linear(cfg.dim, cfg.q_lora_rank, **kw)
+        self.wq_b = Linear(cfg.q_lora_rank, h * cfg.qk_head_dim, **kw)
+        self.wkv_a = Linear(cfg.dim, r + cfg.qk_rope_head_dim, **kw)
+        self.wk_b = Linear(r, h * cfg.qk_nope_head_dim, **kw)
+        self.wv_b = Linear(r, h * cfg.v_head_dim, **kw)
+        self.wo = Linear(h * cfg.v_head_dim, cfg.dim, **kw)
+
+    @staticmethod
+    def init_cache(cfg: MLAConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None) -> dict:
+        return {
+            "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                 dtype=dtype, device=device),
+            "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                              device=device),
+        }
+
+    @staticmethod
+    def init_paged_cache(cfg: MLAConfig, pool_pages: int, page_size: int,
+                         dtype=torch.bfloat16, device=None) -> dict:
+        """Pooled latent rows for paged decode: position-indexed like K/V,
+        so they share the page pool and block table of
+        ``Attention.init_paged_cache`` (trash page 0, ``pos`` -1 =
+        unwritten)."""
+        return {
+            "ckv_pages": torch.zeros((pool_pages, page_size,
+                                      cfg.kv_lora_rank), dtype=dtype,
+                                     device=device),
+            "krope_pages": torch.zeros((pool_pages, page_size,
+                                        cfg.qk_rope_head_dim), dtype=dtype,
+                                       device=device),
+            "pos": torch.full((pool_pages, page_size), -1,
+                              dtype=torch.int32, device=device),
+        }
+
+    @staticmethod
+    def _gather_paged_latents(cache, block_table):
+        """Each slot's latent rows from the pool in position order: page j
+        of a slot's table covers positions [j*ps, (j+1)*ps), the index
+        layout of the contiguous cache.  Unmapped entries read the trash
+        page with ``pos`` forced to -1, an exact zero in the softmax, so
+        the absorbed attention over the gathered block is bitwise the
+        contiguous one."""
+        safe = block_table.clamp(min=0).long()         # (B, P)
+        ckv = cache["ckv_pages"][safe]                 # (B, P, ps, r)
+        krope = cache["krope_pages"][safe]
+        pos = torch.where(block_table[:, :, None] >= 0, cache["pos"][safe],
+                          -1)
+        b, p, ps = pos.shape
+        return (ckv.reshape(b, p * ps, ckv.shape[-1]),
+                krope.reshape(b, p * ps, krope.shape[-1]),
+                pos.reshape(b, p * ps))
+
+    def _queries(self, x, positions):
+        cfg = self.cfg
+        b, l, _ = x.shape
+        q = self.wq_b(self.wq_a(x)).reshape(b, l, cfg.n_heads,
+                                            cfg.qk_head_dim)
+        nope = cfg.qk_nope_head_dim
+        q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+        return torch.cat([q[..., :nope], q_rope], dim=-1)
+
+    def _expand_kv(self, ckv, krope):
+        """Latent (B, S, r) + shared rope key (B, S, rope) -> per-head K
+        (nope + rope) and V."""
+        cfg = self.cfg
+        b, s, _ = ckv.shape
+        k_nope = self.wk_b(ckv).reshape(b, s, cfg.n_heads,
+                                        cfg.qk_nope_head_dim)
+        v = self.wv_b(ckv).reshape(b, s, cfg.n_heads, cfg.v_head_dim)
+        k_rope = krope[:, :, None, :].expand(b, s, cfg.n_heads,
+                                             cfg.qk_rope_head_dim)
+        return torch.cat([k_nope, k_rope], dim=-1), v
+
+    def forward(self, x, *, positions, cache=None, cache_index=None,
+                block_table=None, chunk_lens=None):
+        """The modes of ``Attention.forward``; the cache is a latent cache
+        (``init_cache``) or a latent pool (``init_paged_cache``), written
+        in place.  Returns (out, cache).  Under a profiler the call runs
+        inside the label ``mla``."""
+        with profiler_label("mla"):
+            return self._forward(x, positions, cache, cache_index,
+                                 block_table, chunk_lens)
+
+    def _forward(self, x, positions, cache, cache_index, block_table,
+                 chunk_lens):
+        cfg = self.cfg
+        b, l, _ = x.shape
+        q = self._queries(x, positions)
+        ckv, krope_raw = self.wkv_a(x).split(
+            [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
+        krope = apply_rope(krope_raw[:, :, None, :], positions,
+                           cfg.rope_theta)[:, :, 0, :]
+
+        if cache is not None and chunk_lens is not None:
+            out = self._chunked_decode(q, ckv, krope, positions, cache,
+                                       chunk_lens, block_table)
+        elif cache is None or l > 1:
+            if cache is not None:
+                self._prefill_write(ckv, krope, positions, cache)
+            k, v = self._expand_kv(ckv, krope)
+            if l >= CHUNKED_ATTN_THRESHOLD:
+                out = chunked_dot_product_attention(
+                    q, k, v, positions, positions, cfg.scale, causal=True)
+            else:
+                mask = make_attention_mask(positions, positions, causal=True)
+                out = dot_product_attention(q, k, v, mask, cfg.scale)
+        else:
+            out = self._decode(q, ckv, krope, positions, cache, cache_index,
+                               block_table)
+        out = out.reshape(b, l, cfg.n_heads * cfg.v_head_dim)
+        return self.wo(out), cache
+
+    @staticmethod
+    def _prefill_write(ckv, krope, positions, cache) -> None:
+        """Prefill's latent write, in place: rows [0, L)."""
+        if "ckv_pages" in cache:
+            raise ValueError("a paged latent cache takes single-token or "
+                             "chunked decode, not a prefill")
+        b, l, _ = ckv.shape
+        if l > cache["ckv"].shape[1]:
+            raise ValueError(f"prefill of {l} positions exceeds the cache's "
+                             f"{cache['ckv'].shape[1]} rows")
+        cache["ckv"][:, :l] = ckv.to(cache["ckv"].dtype)
+        cache["krope"][:, :l] = krope.to(cache["krope"].dtype)
+        cache["pos"][:, :l] = torch.broadcast_to(positions, (b, l)) \
+            .to(torch.int32)
+
+    def _decode(self, q, ckv, krope, positions, cache, cache_index,
+                block_table):
+        """Single-token decode: this token's latent row written at
+        ``cache_index`` (a scalar or a (B,) vector), or through the block
+        table to (page, offset) in a pool (slots with no mapped page write
+        the trash page), then the absorbed attention over the cache."""
+        b = q.shape[0]
+        ci = torch.as_tensor(cache_index, dtype=torch.int64,
+                             device=q.device)
+        pos_q = torch.broadcast_to(positions, (b, 1)).to(torch.int32)
+        if "ckv_pages" in cache:
+            if block_table is None:
+                raise ValueError("a paged latent cache needs a block_table")
+            ps = cache["pos"].shape[1]
+            ci = ci.expand(b)
+            rows = torch.arange(b, device=q.device)
+            page_idx = (ci // ps).clamp(0, block_table.shape[1] - 1)
+            page_ids = block_table[rows, page_idx].clamp(min=0).long()
+            off = ci % ps
+            cache["ckv_pages"][page_ids, off] = \
+                ckv[:, 0].to(cache["ckv_pages"].dtype)
+            cache["krope_pages"][page_ids, off] = \
+                krope[:, 0].to(cache["krope_pages"].dtype)
+            cache["pos"][page_ids, off] = pos_q[:, 0]
+            ckv_c, krope_c, pos = self._gather_paged_latents(cache,
+                                                             block_table)
+            return self._absorbed_attention(q, ckv_c, krope_c, pos, pos_q)
+        # An empty slot's position may run past the cache (the scheduler
+        # rewinds it on its next admission); its write wraps, as
+        # ``Attention._decode``'s does, into its own rows, which are reset
+        # before they are read.
+        ci = ci % cache["ckv"].shape[1]
+        if ci.ndim:
+            rows = torch.arange(b, device=q.device)
+            cache["ckv"][rows, ci] = ckv[:, 0].to(cache["ckv"].dtype)
+            cache["krope"][rows, ci] = krope[:, 0].to(cache["krope"].dtype)
+            cache["pos"][rows, ci] = pos_q[:, 0]
+        else:
+            # index_copy_ keeps the index on the device (see
+            # ``Attention._decode``).
+            ci = ci.reshape(1)
+            cache["ckv"].index_copy_(1, ci, ckv.to(cache["ckv"].dtype))
+            cache["krope"].index_copy_(1, ci,
+                                       krope.to(cache["krope"].dtype))
+            cache["pos"].index_copy_(1, ci, pos_q)
+        return self._absorbed_attention(q, cache["ckv"], cache["krope"],
+                                        cache["pos"], pos_q)
+
+    def _chunked_decode(self, q, ckv, krope, positions, cache, chunk_lens,
+                        block_table):
+        """Up to C latent rows written per slot, rows ``i >=
+        chunk_lens[b]`` leaving the cache as it was (a pool sends them to
+        the trash page with ``pos`` -1; a contiguous cache takes
+        ``masked_chunk_write``), then the absorbed attention of the (B, C)
+        query block over the updated cache."""
+        b, c = positions.shape
+        row_ok = torch.arange(c, device=q.device)[None, :] < \
+            torch.as_tensor(chunk_lens, device=q.device)[:, None]
+        pos_q = positions.to(torch.int32)
+        if "ckv_pages" in cache:
+            if block_table is None:
+                raise ValueError("a paged latent cache needs a block_table")
+            ps = cache["pos"].shape[1]
+            rows = torch.arange(b, device=q.device)[:, None]
+            page_idx = (pos_q.long() // ps).clamp(0, block_table.shape[1] - 1)
+            page_ids = block_table[rows, page_idx].clamp(min=0).long()
+            page_ids = torch.where(row_ok, page_ids, 0)
+            off = pos_q.long() % ps
+            cache["ckv_pages"][page_ids, off] = \
+                ckv.to(cache["ckv_pages"].dtype)
+            cache["krope_pages"][page_ids, off] = \
+                krope.to(cache["krope_pages"].dtype)
+            cache["pos"][page_ids, off] = torch.where(row_ok, pos_q, -1)
+            ckv_c, krope_c, pos = self._gather_paged_latents(cache,
+                                                             block_table)
+            return self._absorbed_attention(q, ckv_c, krope_c, pos, pos_q)
+        idx = pos_q.long() % cache["ckv"].shape[1]
+        masked_chunk_write(cache, idx, row_ok, {"ckv": ckv, "krope": krope},
+                           pos_q)
+        return self._absorbed_attention(q, cache["ckv"], cache["krope"],
+                                        cache["pos"], pos_q)
+
+    def _absorbed_attention(self, q, ckv_c, krope_c, pos, q_pos):
+        """Decode attention of a (B, Lq) query block over the latent cache,
+        entirely in the latent space: W_uk absorbed into the query, W_uv
+        applied to the latent output, per-head K/V never built.  The
+        reference's dtypes: the einsums in q's dtype, their sum cast to
+        float32 and scaled, masked logits NEG_INF, softmax in float32, the
+        probabilities cast to q's dtype."""
+        cfg = self.cfg
+        h, r = cfg.n_heads, cfg.kv_lora_rank
+        nope = cfg.qk_nope_head_dim
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
+        # weights are stored (out, in): (h * d, r) -> (r, h, d)
+        w_uk = self.wk_b.weight.to(q.dtype).t().reshape(r, h, nope)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+        ckv_f = ckv_c.to(q.dtype)
+        logits = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv_f) +
+                  torch.einsum("bqhd,bsd->bhqs", q_rope,
+                               krope_c.to(q.dtype)))
+        logits = logits.float() * cfg.scale
+        mask = make_attention_mask(q_pos, pos, causal=True, k_valid=pos >= 0)
+        logits = logits.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv_f)
+        w_uv = self.wv_b.weight.to(q.dtype).t().reshape(r, h, cfg.v_head_dim)
+        return torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)

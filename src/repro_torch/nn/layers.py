@@ -7,11 +7,23 @@ reference.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.nn import activations, initializers
+
+
+def profiler_label(name: str):
+    """A profiler range named ``name`` (its device time counts the kernels
+    launched inside it), entered only while a profiler runs:
+    ``record_function`` costs host time even with no profiler running."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
 
 
 def _cast(p, dtype):

@@ -33,16 +33,14 @@ the config keeps those fields, and a mesh raises.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from repro_torch.nn import activations, initializers
-from repro_torch.nn.layers import MLP, Linear
+from repro_torch.nn.layers import MLP, Linear, profiler_label
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,13 +58,6 @@ class MoEConfig:
     aux_loss_coef: float = 0.001
     psum_scatter: bool = False       # expert parallelism (item 12)
     ep2d: bool = False               # expert parallelism (item 12)
-
-
-def _stage(name: str):
-    """The profiler label of an MoE stage, only while a profiler runs."""
-    if torch.autograd._profiler_enabled():
-        return record_function(name)
-    return contextlib.nullcontext()
 
 
 def capacity(rows: int, cfg: MoEConfig) -> int:
@@ -166,7 +157,7 @@ class MoE(nn.Module):
             None if row_mask is None else row_mask.reshape(b * l).bool())
         out = out.reshape(b, l, d)
         if self.shared is not None:
-            with _stage("moe.shared"):
+            with profiler_label("moe.shared"):
                 out = out + self.shared(x)
         return out, aux
 
@@ -174,11 +165,11 @@ class MoE(nn.Module):
         cfg = self.cfg
         t, d = x.shape
         e, k = cfg.n_experts, cfg.top_k
-        with _stage("moe.route"):
+        with profiler_label("moe.route"):
             logits = self.router(x.float())                    # (T, E) f32
             top_w, top_ids, aux = route(logits, cfg, row_mask)
         cap = capacity(t, cfg)
-        with _stage("moe.dispatch"):
+        with profiler_label("moe.dispatch"):
             order, slot, keep = dispatch(top_ids, row_mask, cap, e)
             t_sorted = order // k
             w_sorted = top_w.reshape(-1).to(x.dtype)[order]
@@ -188,7 +179,7 @@ class MoE(nn.Module):
                                                             x[t_sorted])
             buf = buf[:e * cap].view(e, cap, d)
 
-        with _stage("moe.experts"):
+        with profiler_label("moe.experts"):
             act = activations.get(cfg.activation)
             h = torch.bmm(buf, self.up.to(x.dtype))
             if self.gate is not None:
@@ -197,7 +188,7 @@ class MoE(nn.Module):
                 h = act(h)
             out_buf = torch.bmm(h, self.down.to(x.dtype))
 
-        with _stage("moe.combine"):
+        with profiler_label("moe.combine"):
             out_flat = torch.cat([out_buf.reshape(e * cap, d),
                                   x.new_zeros((1, d))])
             gathered = out_flat[slot] * (w_sorted

@@ -34,7 +34,8 @@ from repro_torch.serving.telemetry import NULL_TRACER
 
 @dataclasses.dataclass
 class ServeState:
-    cache: list                          # per-layer {"k", "v", "pos"} or
+    cache: list                          # per-layer {"k", "v", "pos"},
+                                         # MLA {"ckv", "krope", "pos"} or
                                          # page pools {"k_pages", ...}
     pos: torch.Tensor                    # int32 next absolute position —
                                          # scalar (lock-step) or (B,)

@@ -4,7 +4,8 @@
 Two halves:
 
   * ``KVSlotAllocator`` — owns the decode cache (one ``{"k", "v", "pos"}``
-    dict per layer, slot axis first) for B backbone slots, each shared by N
+    dict per attention layer, ``{"ckv", "krope", "pos"}`` per MLA layer,
+    slot axis first) for B backbone slots, each shared by N
     mux lanes, and supports per-slot reset: ``reset_slots(mask)`` restores
     the masked slots to the primed template (prefix K/V for prefix-protocol
     demuxers, zeros otherwise) and leaves live slots bit-for-bit untouched.
@@ -33,16 +34,20 @@ def _dtype_bytes(dtype_str: str) -> int:
     return torch_dtype(dtype_str).itemsize
 
 
-def _layer_bytes(cfg: ModelConfig, batch: int, rows: int) -> int:
-    """Bytes of ``rows`` K/V/pos rows for ``batch`` slots (or pages) of one
-    attention layer."""
-    return batch * rows * (cfg.n_kv_heads * cfg.head_dim_ * 2
-                           * _dtype_bytes(cfg.dtype) + 4)
+def _layer_bytes(cfg: ModelConfig, kind: dict, batch: int,
+                 rows: int) -> int:
+    """Bytes of ``rows`` cache rows for ``batch`` slots (or pages) of one
+    layer: K, V and pos of an attention layer; the latent, the rope key
+    and pos of an MLA layer."""
+    by = _dtype_bytes(cfg.dtype)
+    if kind["mixer"] == "mla":
+        return batch * rows * (cfg.mla.cache_width * by + 4)
+    return batch * rows * (cfg.n_kv_heads * cfg.head_dim_ * 2 * by + 4)
 
 
 def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
     """Total decode-cache bytes for ``batch`` backbone streams."""
-    return sum(_layer_bytes(cfg, batch, cache_rows(k["window"], seq_len))
+    return sum(_layer_bytes(cfg, k, batch, cache_rows(k["window"], seq_len))
                for k in cfg.layer_kinds())
 
 
@@ -50,16 +55,17 @@ def paged_cache_bytes(cfg: ModelConfig, batch: int, max_len: int, *,
                       pool_pages: int, page_size: int) -> int:
     """Bytes of the paged decode cache (``serving/paging.py``): every
     eligible layer holds a shared ``pool_pages``-page pool, trash page
-    included; a windowed layer whose ring is shorter than ``max_len`` keeps
+    included (an MLA layer's pages hold latent rows); a windowed layer whose ring is shorter than ``max_len`` keeps
     its per-slot ring.  Pass ``table.pages_in_use + 1`` as ``pool_pages``
     to count the pages actually allocated."""
     total = 0
     for kind in cfg.layer_kinds():
         window = kind["window"]
         if paged_eligible(window, max_len):
-            total += _layer_bytes(cfg, pool_pages, page_size)
+            total += _layer_bytes(cfg, kind, pool_pages, page_size)
         else:
-            total += _layer_bytes(cfg, batch, cache_rows(window, max_len))
+            total += _layer_bytes(cfg, kind, batch,
+                                  cache_rows(window, max_len))
     return total
 
 

@@ -8,7 +8,8 @@ pages the position axis instead:
 
   * the pool: every eligible attention layer (``paged_eligible``) holds
     ``pool_pages`` pages of ``page_size`` positions
-    (``Attention.init_paged_cache``); page 0 is a reserved trash page —
+    (``Attention.init_paged_cache``), and every MLA layer as many pages of
+    latent rows (``MLA.init_paged_cache``); page 0 is a reserved trash page —
     writes from emptied slots land there and no block table ever
     references it;
   * the ``PageTable``: host-side free list + per-slot page rows.  A slot's
@@ -49,7 +50,8 @@ from repro_torch.serving.telemetry import NULL_TRACER
 TRASH_PAGE = 0
 
 # Pool key -> the contiguous template's key it imports from.
-_TEMPLATE_KEY = {"k_pages": "k", "v_pages": "v", "pos": "pos"}
+_TEMPLATE_KEY = {"k_pages": "k", "v_pages": "v", "ckv_pages": "ckv",
+                 "krope_pages": "krope", "pos": "pos"}
 
 
 def pages_for(n_positions: int, page_size: int) -> int:
@@ -197,8 +199,10 @@ class PagedKVSlotAllocator:
                 f"pool_pages={self.pool_pages} cannot hold "
                 f"{batch} slots x {self.n_prefix_pages} prefix pages "
                 f"+ 1 working page")
-        # Per layer: pooled, or a contiguous per-slot ring.
-        self._paged = [paged_eligible(k["window"], max_len)
+        # Per layer: pooled, or a contiguous per-slot ring.  A model whose
+        # every layer is pooled (all MLA, say) parks without a snapshot.
+        self._paged = [k["mixer"] in ("attn", "mla") and
+                       paged_eligible(k["window"], max_len)
                        for k in cfg.layer_kinds()]
         self._has_contiguous = not all(self._paged)
 

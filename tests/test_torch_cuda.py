@@ -583,6 +583,18 @@ def test_llama4_smoke_paged_kernels_match_plain_path_on_card(cuda, chunk):
                                           chunk)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_deepseek_smoke_paged_kernels_match_plain_path_on_card(cuda, chunk):
+    """deepseek-v3-671b's smoke config (f32, every layer MLA with its latent
+    rows pooled, layer 0 dense and layers 1-3 MoE with 4 experts top-2 and
+    a shared expert) the same way: the paged pool with the mux and
+    decode-demux kernels against the contiguous plain path, logits within
+    1e-4 x max(1, max|plain|) at every step; the paged attention kernel
+    never launched (MLA attends on the plain path)."""
+    _smoke_paged_kernels_match_plain_path(cuda, "deepseek-v3-671b", chunk)
+
+
 def _smoke_paged_kernels_match_plain_path(cuda, arch, chunk):
     import dataclasses
 
@@ -611,7 +623,8 @@ def _smoke_paged_kernels_match_plain_path(cuda, arch, chunk):
         alloc = (PagedKVSlotAllocator if paged else KVSlotAllocator)(
             m.cfg, b, eng.max_len, template=primed.cache)
         engines.append((eng, alloc, primed))
-    assert [("k_pages" in c) for c in engines[0][1].cache] == \
+    assert [any(key.endswith("_pages") for key in c)
+            for c in engines[0][1].cache] == \
         [k["window"] is None for k in cfg.layer_kinds()]
     n = cfg.mux.n
     pos = engines[0][2].pos.cpu().numpy().copy()
@@ -639,8 +652,9 @@ def _smoke_paged_kernels_match_plain_path(cuda, arch, chunk):
             1.0, want.abs().max().item())
         pos += chunk
     torch.cuda.synchronize()
-    n_global = sum(k["window"] is None for k in cfg.layer_kinds())
-    assert _build.LAUNCHES["paged_decode_attention"] == \
+    n_global = sum(k["mixer"] == "attn" and k["window"] is None
+                   for k in cfg.layer_kinds())
+    assert _build.LAUNCHES.get("paged_decode_attention", 0) == \
         n_global * (24 // chunk)
     assert _build.LAUNCHES["decode_demux"] == 24 // chunk
 
@@ -700,6 +714,28 @@ def test_kernels_at_llama4_shapes_on_card(cuda, name, shape):
     """Each kernel at llama4-scout's shapes against its plain version run
     in f32 on the same bf16 inputs, within 1e-2 x max(1, max|plain|) (the
     paged kernel on query rows with a valid key)."""
+    _kernel_matches_plain_version_at(cuda, name, shape)
+
+
+# deepseek-v3-671b's kernel shapes in chip_smoke.py's [mla] phase (d 7168,
+# H 14336), bf16: MLA runs neither the flash nor the paged kernel.
+DEEPSEEK_CARD = [
+    ("hadamard_mux", (8, 8, 1, 7168)), ("hadamard_mux", (8, 8, 4, 7168)),
+    ("hadamard_mux", (1, 8, 520, 7168)),
+    ("decode_demux", (8, 8, 1, 7168)), ("decode_demux", (8, 8, 4, 7168)),
+    ("index_embed_demux", (1, 8, 512, 7168)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", DEEPSEEK_CARD)
+def test_kernels_at_deepseek_shapes_on_card(cuda, name, shape):
+    """The mux and both demux kernels at deepseek-v3-671b's shapes against
+    their plain versions, as at llama4-scout's."""
+    _kernel_matches_plain_version_at(cuda, name, shape)
+
+
+def _kernel_matches_plain_version_at(cuda, name, shape):
     g = torch.Generator(device=cuda).manual_seed(0)
     bf16 = torch.bfloat16
 
@@ -740,3 +776,61 @@ def test_kernels_at_llama4_shapes_on_card(cuda, name, shape):
     torch.cuda.synchronize()
     err = ((got.float() - want) * live).abs().max().item()
     assert err <= 1e-2 * max(1.0, (want * live).abs().max().item())
+
+
+def _mla_steps(device, seed=0):
+    """An f32 MLA (d 96, 4 heads, q rank 48, latent 32, nope 16, rope 8,
+    v 24) on ``device``, weights from ``seed``: its outputs over a
+    cache-free forward of 12 positions, a prefill of 5 into a 16-row
+    latent cache and two one-token steps at per-slot positions, and a
+    3-row chunked step (ragged lengths) into a pool of pages of 4 through
+    a scattered block table; all on inputs made on the CPU."""
+    from repro_torch.nn.attention import MLA, MLAConfig
+
+    cfg = MLAConfig(dim=96, n_heads=4, q_lora_rank=48, kv_lora_rank=32,
+                    qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=24)
+    model = MLA(cfg, generator=torch.Generator().manual_seed(seed)).eval()
+    model.to(device)
+    g = torch.Generator().manual_seed(seed + 1)
+
+    def x(b, l):
+        return torch.randn((b, l, cfg.dim), generator=g).to(device)
+
+    def ar(*rows):
+        return torch.tensor(rows, dtype=torch.int32, device=device)
+    outs = []
+    with torch.no_grad():
+        pos = torch.arange(12, device=device).expand(3, 12)
+        outs.append(model(x(3, 12), positions=pos)[0])
+        cache = MLA.init_cache(cfg, 3, 16, torch.float32, device)
+        outs.append(model(x(3, 5), positions=pos[:, :5], cache=cache)[0])
+        for t in range(2):
+            ci = ar(5 + t, 7 + t, 6 + t)
+            outs.append(model(x(3, 1), positions=ci[:, None], cache=cache,
+                              cache_index=ci)[0])
+        pool = MLA.init_paged_cache(cfg, 14, 4, torch.float32, device)
+        bt = ar([3, 7, 1, 9], [5, 2, 12, 4], [6, 13, 10, -1])
+        base = ar(0, 2, 4)
+        positions = base[:, None] + torch.arange(3, device=device)
+        outs.append(model(x(3, 3), positions=positions, cache=pool,
+                          cache_index=base, chunk_lens=ar(3, 1, 2),
+                          block_table=bt)[0])
+    return outs
+
+
+@pytest.mark.cuda
+def test_mla_matches_the_cpu_and_repeats_on_card(cuda):
+    """The MLA module in f32 on the card, in each of its modes (the
+    cache-free forward, prefill, contiguous decode at per-slot positions,
+    paged chunked decode), against the same weights and inputs on the CPU
+    within 1e-4 x max(1, max|CPU|), and bitwise the same on a second run.
+    MLA launches none of the port's kernels."""
+    want = _mla_steps(torch.device("cpu"))
+    _build.LAUNCHES.clear()
+    first, second = _mla_steps(cuda), _mla_steps(cuda)
+    torch.cuda.synchronize()
+    assert not _build.LAUNCHES
+    for w, a, b in zip(want, first, second):
+        assert torch.equal(a, b)
+        assert (a.cpu() - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())
