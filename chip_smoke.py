@@ -121,15 +121,24 @@ Phases, any failure of which ends the run with a non-zero exit:
      decode-demux and index-embed demux kernels on, the paged and flash
      kernels never launched (MLA attends on the plain path, as in the
      reference), the pool's bytes equal to ``paged_cache_bytes``, and the
-     MLA share of the profiled steps' device time printed.
+     MLA share of the profiled steps' device time printed;
+ 12. the hybrid: ``jamba-1.5-large-398b`` at full width (d 8192, Mamba
+     layers of d_inner 16384, state 16, dt rank 512; attention of 64
+     heads over 8 KV heads of 128; 16 experts of 24576 top-2; dense MLPs
+     of 24576; vocab 65536), its layers 3-5 of 72 (Mamba + dense,
+     attention + MoE, Mamba + dense: 25.9 GB of bf16 weights), N=8,
+     served and evaluated as in phase 10: the Mamba states contiguous
+     beside the page pool, the paged kernel launched by the attention
+     layer (n_rep 8), flash by it at eval, and the device time of the
+     ``mamba`` label and of the MoE stages printed.
 
 Phase 2 also holds the mux and both demux kernels at every shape phases
-8-11 launch them (d 2560, 3072, 5120, 7168 and 18432), the paged kernel at
-gemma3-4b's chunked shape (64 rows x n_rep 2, hd 256) and llama4-scout's
-(n_rep 5, hd 128, C 1 and 4) and flash attention at the four models'
-shapes in phases 9 and 10 against their plain versions.  Each phase's
-seconds are printed.  The
-mux and demux launches of phases 3-11 record their shapes, and the run
+8-12 launch them (d 2560, 3072, 5120, 7168, 8192 and 18432), the paged
+kernel at gemma3-4b's chunked shape (64 rows x n_rep 2, hd 256),
+llama4-scout's (n_rep 5, hd 128, C 1 and 4) and jamba's (n_rep 8, C 1 and
+4) and flash attention at the five models' shapes in phases 9, 10 and 12
+against their plain versions.  Each phase's seconds are printed.  The
+mux and demux launches of phases 3-12 record their shapes, and the run
 fails if one of them was not held in phase 2 (the launch plans are chosen
 from the shape).
 
@@ -335,7 +344,10 @@ def check_kernels(torch, gen):
             (8, 8, 8, 5120, bf16), (1, 8, 520, 5120, bf16),
             # deepseek-v3-671b's [mla] shapes, the same steps at d 7168
             (8, 8, 1, 7168, bf16), (8, 8, 4, 7168, bf16),
-            (8, 8, 8, 7168, bf16), (1, 8, 520, 7168, bf16)):
+            (8, 8, 8, 7168, bf16), (1, 8, 520, 7168, bf16),
+            # jamba-1.5-large-398b's [hybrid] shapes at d 8192
+            (8, 8, 1, 8192, bf16), (8, 8, 4, 8192, bf16),
+            (8, 8, 8, 8192, bf16), (1, 8, 520, 8192, bf16)):
         x32, v32 = randn(b, n, l, d), randn(n, d)
         for dtype in dtypes:
             x, v = x32.to(dtype), v32.to(dtype)
@@ -384,7 +396,14 @@ def check_kernels(torch, gen):
                     # deepseek-v3-671b's [mla] shapes (d 7168, H 14336)
                     ("decode_demux", 8, 8, 1, 7168, 14336, bf16),
                     ("decode_demux", 8, 8, 4, 7168, 14336, bf16),
-                    ("index_embed_demux", 1, 8, 512, 7168, 14336, bf16))
+                    ("index_embed_demux", 1, 8, 512, 7168, 14336, bf16),
+                    # jamba-1.5-large-398b's [hybrid] shapes (d 8192, H
+                    # 16384): decode steps of one row and chunks of 4, a
+                    # one-row prefill demux and the eval
+                    ("decode_demux", 8, 8, 1, 8192, 16384, bf16),
+                    ("decode_demux", 8, 8, 4, 8192, 16384, bf16),
+                    ("index_embed_demux", 8, 8, 1, 8192, 16384, bf16),
+                    ("index_embed_demux", 1, 8, 512, 8192, 16384, bf16))
     for name, b, n, l, d, hid, dtypes in demux_shapes:
         h32, p32 = randn(b, l, d), randn(b, n, d)
         w1_32, b1_32 = randn(hid, 2 * d, scale=(2 * d) ** -0.5), \
@@ -634,6 +653,12 @@ def check_paged_kernel(torch, gen):
                            lengths=tmux_lengths), True, None, (1,)),
         ("llama4 C4", dict(b=8, h=40, kvh=8, hd=128, ps=16, mp=9, c=4,
                            lengths=tmux_lengths), True, None, (1,)),
+        # jamba-1.5-large-398b under [hybrid]: 64 heads over 8 KV heads of
+        # 128 (n_rep 8), 8 query rows per KV head at C 1, 32 at C 4
+        ("jamba C1", dict(b=8, h=64, kvh=8, hd=128, ps=16, mp=9, c=1,
+                          lengths=tmux_lengths), True, None, (1,)),
+        ("jamba C4", dict(b=8, h=64, kvh=8, hd=128, ps=16, mp=9, c=4,
+                          lengths=tmux_lengths), True, None, (1,)),
     ]
     results = []
     with torch.no_grad():
@@ -779,7 +804,8 @@ def flash_cases(torch, gen):
     for label, (b, l, h, hd) in (("gemma3-4b eval", (1, 1288, 8, 256)),
                                  ("gemma-7b eval", (1, 520, 16, 256)),
                                  ("nemotron-4-340b eval", (1, 264, 96, 192)),
-                                 ("llama4-scout eval", (1, 520, 40, 128))):
+                                 ("llama4-scout eval", (1, 520, 40, 128)),
+                                 ("jamba eval", (1, 520, 64, 128))):
         q, k, v = (randn(b, l, h, hd) for _ in range(3))
         cases.append((label, q, k, v, True, None))
     q = randn(1, 32, 2, 64)
@@ -1211,22 +1237,24 @@ def device_rows(events, steps: int) -> list[tuple[float, str]]:
 def print_stages(events, steps: int, label: str) -> None:
     """Device ms per step of each profiler label of the MoE block
     (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
-    ``moe.shared``) and of MLA (``mla``): the kernels launched inside the
-    label; MLA's also as a share of the device's busy time."""
+    ``moe.shared``), of MLA (``mla``) and of Mamba (``mamba``): the
+    kernels launched inside the label; MLA's and Mamba's also as a share
+    of the device's busy time."""
     from torch.autograd import DeviceType
 
     stages = sorted((e.key, e.device_time_total / 1e3 / steps, e.count)
                     for e in events if (e.key.startswith("moe.")
-                                        or e.key == "mla")
+                                        or e.key in ("mla", "mamba"))
                     and e.device_type == DeviceType.CPU)
     if stages:
         busy = sum(t for t, _ in device_rows(events, steps))
-        print(f"[profile] {label}: MoE and MLA stages, device ms per step: "
+        print(f"[profile] {label}: MoE, MLA and Mamba stages, device ms "
+              f"per step: "
               + ", ".join(f"{key} {t:.4f} (x{count / steps:.0f})"
                           for key, t, count in stages))
         for key, t, _ in stages:
-            if key == "mla" and busy:
-                print(f"[profile] {label}: MLA share of device busy time "
+            if key in ("mla", "mamba") and busy:
+                print(f"[profile] {label}: {key} share of device busy time "
                       f"{t / busy:.4f} ({t:.4f} of {busy:.4f} ms)")
 
 
@@ -2480,6 +2508,61 @@ def run_mla(torch, seed: int):
     return serve_and_eval_moe(torch, seed, base, "[mla]", describe)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: Mamba beside attention in jamba-1.5-large-398b
+# ---------------------------------------------------------------------------
+
+HYBRID_LAYERS = (3, 6)    # jamba's layers 3-5 of 72: Mamba + dense,
+                          # attention + MoE, Mamba + dense (25.9 GB)
+
+
+def run_hybrid(torch, seed: int):
+    """jamba-1.5-large-398b at full width (d 8192; Mamba of d_inner 16384,
+    state 16, conv 4, dt rank 512; attention of 64 heads over 8 KV heads
+    of 128; 16 experts of 24576 top-2; dense MLPs of 24576; vocab 65536),
+    its layers 3-5 of 72 as a 3-layer config whose ``layer_kinds`` are the
+    full model's, N = 8, bf16, weights from ``seed``, through
+    ``serve_and_eval_moe``: the Mamba states contiguous beside the page
+    pool, the paged kernel (n_rep 8) and at eval flash launched by the
+    attention layer, Mamba on the plain path (the reference's is plain
+    jnp).  The smallest prefix of the model that holds its attention layer
+    (layers 0-4, three MoE layers) is about 66 GB of weights, past what the
+    card holds beside the float32 draw."""
+    from repro_torch.configs.registry import get_config
+
+    full = get_config("jamba-1.5-large-398b", mux_n=8)
+    first, stop = HYBRID_LAYERS
+    base = dataclasses.replace(full, n_layers=stop - first,
+                               attn_offset=full.attn_offset - first,
+                               moe_layer_start=1)
+    if base.layer_kinds() != full.layer_kinds()[first:stop]:
+        raise SystemExit(f"[hybrid] FAIL: the cut's layer kinds "
+                         f"{base.layer_kinds()} are not the full model's "
+                         f"layers {first}-{stop - 1}")
+
+    def describe(model, weights, router):
+        m, moe = base.mamba, base.moe
+        n_mamba = sum(k["mixer"] == "mamba" for k in base.layer_kinds())
+        mamba = sum(p.numel() for n, p in model.named_parameters()
+                    if ".mamba." in n) // n_mamba
+        kinds = [f"{k['mixer']}+{k['mlp']}" for k in base.layer_kinds()]
+        print(f"[hybrid] {base.name}: d={base.d_model}, Mamba (d_inner "
+              f"{m.d_inner}, state {m.d_state}, conv {m.d_conv}, dt rank "
+              f"{m.dt_rank_}, scan chunk {m.chunk}; {mamba / 1e6:.1f} M "
+              f"parameters a layer), attention {base.n_heads} heads of "
+              f"{base.head_dim_} over {base.n_kv_heads} KV heads, dense MLP "
+              f"{base.d_ff}, {moe.n_experts} experts of {moe.moe_ff} "
+              f"top-{moe.top_k} ({moe.router_scoring}, capacity_factor "
+              f"{moe.capacity_factor}), vocab {base.vocab}, N={base.mux.n}, "
+              f"{base.dtype} (router {sorted(map(str, router))}), "
+              f"{weights / 1e9:.2f} GB of weights; layers {kinds} (the full "
+              f"model's {first}-{stop - 1})")
+        print(f"[hybrid] reduced: layers {first}-{stop - 1} of "
+              f"{full.n_layers}")
+
+    return serve_and_eval_moe(torch, seed, base, "[hybrid]", describe)
+
+
 def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
     """An MoE model ``base`` at full width, N = 8, bf16, weights from
     ``seed``.  Serving: ``ContinuousScheduler`` on the paged pool
@@ -2496,7 +2579,7 @@ def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
     routing replayed: logits within LOGIT_TOL, task loss and ``moe_aux``
     within EVAL_LOSS_TOL.  Peak memory under 70 GB; eval-step times on and
     off in turns; profiles of a scheduler step and an eval step with the
-    MoE stages' and MLA's device time."""
+    MoE stages', MLA's and Mamba's device time."""
     import gc
 
     from repro_torch.configs.base import ServingConfig
@@ -2769,7 +2852,7 @@ def main(argv=None) -> int:
                        ("eval", run_eval), ("router", run_router),
                        ("train", run_train), ("window", run_window),
                        ("dense", run_dense), ("moe", run_moe),
-                       ("mla", run_mla)):
+                       ("mla", run_mla), ("hybrid", run_hybrid)):
         t0 = time.perf_counter()
         by_phase[phase] = run(torch, args.seed)
         print(f"[time] phase [{phase}]: {time.perf_counter() - t0:.1f} s")

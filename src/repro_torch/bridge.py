@@ -18,9 +18,12 @@ JAX nor the reference package.  Mapping:
     layer's expert stacks ``moe.up`` / ``moe.gate`` (E, d, f) and
     ``moe.down`` (E, f, d), ...); an MLA layer's six Linears sit under
     ``attn`` as an attention layer's four do (``attn.wq_a``, ``wq_b``,
-    ``wkv_a``, ``wk_b``, ``wv_b``, ``wo``); an MoE router ``{"w": (d, E)}`` is a
-    Linear like any other (``moe.router.weight`` (E, d)) and keeps its
-    float32.
+    ``wkv_a``, ``wk_b``, ``wv_b``, ``wo``); a Mamba layer's leaves sit
+    under ``mamba`` (``mamba.in_proj``, ``x_proj``, ``dt_proj`` (with its
+    bias) and ``out_proj`` are Linears; ``conv_w`` (d_conv, d_inner),
+    ``conv_b``, ``A_log`` (d_inner, d_state) and ``D`` keep their names and
+    layouts); an MoE router ``{"w": (d, E)}`` is a Linear like any other
+    (``moe.router.weight`` (E, d)) and keeps its float32.
 
 A tied embedding stays tied: the reference then has no ``lm_head`` and
 neither does the state_dict.  A trainer's task head ``{"w": (d,
@@ -30,8 +33,9 @@ n_classes)}`` (cls/tag tasks) is not a backbone weight: it becomes
 A cache pytree has the same head / scanned blocks / tail split, with one
 dict of leaves per layer (``k``/``v``/``pos`` contiguous, or
 ``k_pages``/``v_pages``/``pos`` paged; an MLA layer's ``ckv``/``krope``/
-``pos`` or ``ckv_pages``/``krope_pages``/``pos``); ``cache_from_jax`` splits it into
-one such dict of tensors per layer, in layer order.
+``pos`` or ``ckv_pages``/``krope_pages``/``pos``; a Mamba layer's ``ssm``
+(float32) / ``conv``, contiguous in either layout); ``cache_from_jax``
+splits it into one such dict of tensors per layer, in layer order.
 
 An optimizer state ``{"mu", "nu", "step"}`` holds trees of the params'
 structure, so ``opt_state_from_jax`` maps its moments as params.  Leaves

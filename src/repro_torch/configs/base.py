@@ -2,10 +2,10 @@
 
 ``MuxConfig`` and ``ServingConfig`` keep the reference's fields and
 defaults, so one set of values describes a run in both packages.
-``ModelConfig`` keeps the fields of the dense and MoE families (MLA
-mixers included), the ones the port's backbone runs so far.  Strategy
-names are validated against the port's own registry
-(``repro_torch.core.strategies``).
+``ModelConfig`` keeps the fields of the dense, MoE and hybrid families
+(MLA mixers included; Mamba mixers beside attention), the ones the port's
+backbone runs so far.  Strategy names are validated against the port's
+own registry (``repro_torch.core.strategies``).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.nn.attention import AttnConfig, MLAConfig
 from repro_torch.nn.moe import MoEConfig
+from repro_torch.nn.ssm import MambaConfig
 
 DTYPES = {
     "float32": torch.float32,
@@ -148,16 +149,16 @@ class ServingConfig:
 
 
 # ---------------------------------------------------------------------------
-# Model config (dense and MoE families)
+# Model config (dense, MoE and hybrid families)
 # ---------------------------------------------------------------------------
 
-FAMILIES = ("dense", "moe")          # the families the port runs so far
+FAMILIES = ("dense", "moe", "hybrid")  # the families the port runs so far
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe
+    family: str                      # dense | moe | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -172,6 +173,9 @@ class ModelConfig:
     moe_layer_start: int = 0         # layers < start are dense MLP
     moe_every: int = 1               # every k-th layer (within MoE region) is MoE
     mla: MLAConfig | None = None     # MLA (DeepSeek) mixers on every layer
+    mamba: MambaConfig | None = None  # Mamba mixers (hybrid: beside attention)
+    attn_every: int = 0              # hybrid: layer i is attention iff
+    attn_offset: int = 0             # i % attn_every == attn_offset
     norm: str = "rmsnorm"
     activation: str = "silu"
     gated_mlp: bool = True
@@ -187,9 +191,10 @@ class ModelConfig:
     def __post_init__(self):
         if self.family not in FAMILIES:
             raise ValueError(
-                f"the port runs the {' and '.join(FAMILIES)} families only "
-                f"so far, got family={self.family!r} (ROADMAP Queue A item "
-                f"9)")
+                f"the port runs the {', '.join(FAMILIES[:-1])} and "
+                f"{FAMILIES[-1]} families only so far, got family="
+                f"{self.family!r} (xLSTM and the ssm family: ROADMAP Queue "
+                f"A item 9c)")
         torch_dtype(self.dtype)
         torch_dtype(self.param_dtype)
         from repro_torch.core import strategies
@@ -247,16 +252,23 @@ class ModelConfig:
 
     def layer_kinds(self) -> list[dict]:
         """Static per-layer structure, by the reference's rules: each
-        layer's mixer is MLA when ``mla`` is set, else attention, followed
-        by an MLP when ``d_ff`` or ``moe`` is set; the MLP of layer i is
-        MoE iff ``moe`` is set, ``i >= moe_layer_start`` and ``(i -
-        moe_layer_start) % moe_every == 0``, and dense otherwise; with a
-        ``window``, an attention layer i is global (no window) iff
+        layer's mixer is MLA when ``mla`` is set; with ``mamba`` set it is
+        Mamba, or, with ``attn_every``, attention iff ``i % attn_every ==
+        attn_offset`` and Mamba otherwise; else attention.  The mixer is
+        followed by an MLP when ``d_ff`` or ``moe`` is set; the MLP of
+        layer i is MoE iff ``moe`` is set, ``i >= moe_layer_start`` and
+        ``(i - moe_layer_start) % moe_every == 0``, and dense otherwise;
+        with a ``window``, an attention layer i is global (no window) iff
         ``global_every`` and ``(i + 1) % global_every == 0``, and local
         (``window``) otherwise."""
-        mixer = "attn" if self.mla is None else "mla"
         kinds = []
         for i in range(self.n_layers):
+            mixer = "attn"
+            if self.mla is not None:
+                mixer = "mla"
+            if self.mamba is not None:
+                mixer = "attn" if (self.attn_every and i % self.attn_every
+                                   == self.attn_offset) else "mamba"
             window = None
             if mixer == "attn" and self.window is not None and not (
                     self.global_every and (i + 1) % self.global_every == 0):

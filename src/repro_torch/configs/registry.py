@@ -2,8 +2,10 @@
 
 The port registers the archs of the dense family: the paper's T-MUX
 (three sizes), qwen1.5-4b, gemma-7b, gemma3-4b (sliding-window local
-layers) and nemotron-4-340b; and of the MoE family, llama4-scout-17b-a16e
-and deepseek-v3-671b (MLA mixers).
+layers) and nemotron-4-340b; of the MoE family, llama4-scout-17b-a16e
+and deepseek-v3-671b (MLA mixers); and of the hybrid family,
+jamba-1.5-large-398b (Mamba layers beside attention, MoE on every other
+layer).
 The smoke rules are the reference's
 (``repro.configs.registry.get_smoke_config``) for these archs.
 """
@@ -12,8 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import (deepseek_v3_671b, gemma3_4b, gemma_7b,
-                                 llama4_scout_17b_a16e, nemotron_4_340b,
-                                 qwen1_5_4b, tmux_12l_768h)
+                                 jamba_1_5_large_398b, llama4_scout_17b_a16e,
+                                 nemotron_4_340b, qwen1_5_4b, tmux_12l_768h)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import MLAConfig
 
@@ -21,6 +23,7 @@ ARCHS: dict[str, ModelConfig] = {
     "deepseek-v3-671b": deepseek_v3_671b.CONFIG,
     "gemma-7b": gemma_7b.CONFIG,
     "gemma3-4b": gemma3_4b.CONFIG,
+    "jamba-1.5-large-398b": jamba_1_5_large_398b.CONFIG,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
     "nemotron-4-340b": nemotron_4_340b.CONFIG,
     "qwen1.5-4b": qwen1_5_4b.CONFIG,
@@ -49,7 +52,10 @@ def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
     vocab 512, float32; a windowed arch keeps window 16 with every 2nd
     layer global; an MoE arch keeps 4 experts of width 2 * d_model, top-k
     at most 2, and its MoE layers from layer 1 at the latest; an MLA arch
-    keeps q rank 64, latent 32, nope 32, rope 16 and v 32 per head."""
+    keeps q rank 64, latent 32, nope 32, rope 16 and v 32 per head; a
+    Mamba arch keeps its state, conv and expansion at d_model with scan
+    chunks of 16, and a hybrid one an attention layer every 4th layer
+    (at most) from layer 1."""
     cfg = get_config(arch)
     d = min(cfg.d_model, 256)
     heads = 4
@@ -67,6 +73,10 @@ def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
             cfg.moe, dim=d, moe_ff=2 * d, n_experts=4,
             top_k=min(cfg.moe.top_k, 2))
         kw["moe_layer_start"] = min(cfg.moe_layer_start, 1)
+    if cfg.mamba is not None:
+        kw["mamba"] = dataclasses.replace(cfg.mamba, dim=d, chunk=16)
+        kw["attn_every"] = min(cfg.attn_every, 4) if cfg.attn_every else 0
+        kw["attn_offset"] = 1 if cfg.attn_every else 0
     return dataclasses.replace(
         cfg,
         **kw,

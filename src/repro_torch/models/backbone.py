@@ -1,5 +1,5 @@
 """Multiplexed backbone — the port of ``repro.models.backbone`` for the
-dense and MoE families (attention or MLA mixers).
+dense, MoE and hybrid families (attention, MLA or Mamba mixers).
 
 DataMUX is integrated as in the reference: token embedding → prefix
 protocol → mux strategy → attention + MLP blocks → demux strategy →
@@ -21,19 +21,25 @@ from repro_torch.device import resolve_device
 from repro_torch.nn.attention import MLA, Attention, paged_eligible
 from repro_torch.nn.layers import MLP, Embedding, Linear, make_norm
 from repro_torch.nn.moe import MoE
+from repro_torch.nn.ssm import Mamba
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                dtype=None, page_pool=None) -> list[dict]:
-    """One cache per layer (K/V for attention, latent rows for MLA):
-    contiguous, ``max_len`` rows per slot (a windowed layer: its ring of
-    ``min(window, max_len)`` rows); or, with ``page_pool`` = (pool_pages,
-    page_size), a page pool shared by every slot (see
-    ``serving/paging.py``) for each layer that ``paged_eligible`` admits,
-    the others keeping their contiguous caches."""
+    """One cache per layer (K/V for attention, latent rows for MLA, the
+    recurrent state for Mamba): contiguous, ``max_len`` rows per slot (a
+    windowed layer: its ring of ``min(window, max_len)`` rows); or, with
+    ``page_pool`` = (pool_pages, page_size), a page pool shared by every
+    slot (see ``serving/paging.py``) for each attention or MLA layer that
+    ``paged_eligible`` admits, the others keeping their contiguous caches.
+    A Mamba layer's state is O(1) per slot and stays contiguous whatever
+    ``page_pool`` and ``max_len`` say."""
     dtype = dtype or cfg.compute_dtype
     caches = []
     for kind in cfg.layer_kinds():
+        if kind["mixer"] == "mamba":
+            caches.append(Mamba.init_cache(cfg.mamba, batch, dtype, device))
+            continue
         paged = page_pool is not None and paged_eligible(kind["window"],
                                                          max_len)
         if kind["mixer"] == "mla":
@@ -53,14 +59,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
 
 
 class Block(nn.Module):
-    """Pre-norm attention (or MLA) + MLP (dense or MoE) residual block."""
+    """Pre-norm attention (or MLA, or Mamba) + MLP (dense or MoE) residual
+    block.  An attention or MLA mixer is ``attn``; a Mamba mixer is
+    ``mamba`` (as in the reference's param tree), and ``attn`` is then
+    None."""
 
     def __init__(self, cfg: ModelConfig, kind: dict, *, generator, device,
                  dtype, use_flash: bool = False):
         super().__init__()
         norm = make_norm(cfg.norm)
         self.norm1 = norm(cfg.d_model, device=device, dtype=dtype)
-        if kind["mixer"] == "mla":
+        self.attn = self.mamba = None
+        if kind["mixer"] == "mamba":
+            self.mamba = Mamba(cfg.mamba, generator=generator, device=device,
+                               dtype=dtype)
+        elif kind["mixer"] == "mla":
             # MLA never goes through the flash kernel (as in the reference)
             self.attn = MLA(cfg.mla, generator=generator, device=device,
                             dtype=dtype)
@@ -82,25 +95,31 @@ class Block(nn.Module):
 
     def with_attn_config(self, acfg) -> "Block":
         """This block's weights (shared) with its attention under ``acfg``;
-        an MLA mixer, which no attention setting reaches, is shared as it
-        is."""
+        an MLA or Mamba mixer, which no attention setting reaches, is
+        shared as it is."""
         out = Block.__new__(Block)
         nn.Module.__init__(out)
         out.norm1, out.norm2 = self.norm1, self.norm2
-        out.mlp, out.moe = self.mlp, self.moe
-        out.attn = self.attn if isinstance(self.attn, MLA) else \
-            self.attn.with_config(acfg)
+        out.mlp, out.moe, out.mamba = self.mlp, self.moe, self.mamba
+        out.attn = self.attn if self.attn is None or isinstance(
+            self.attn, MLA) else self.attn.with_config(acfg)
         return out
 
     def forward(self, x, *, positions, cache=None, cache_index=None,
                 block_table=None, chunk_lens=None, row_mask=None):
         """-> (x, cache, aux): ``aux`` is the MoE load-balance loss, None
         for a dense block.  ``row_mask`` (B, L) marks the rows the MoE
-        dispatch counts (None: all)."""
-        out, cache = self.attn(self.norm1(x), positions=positions,
-                               cache=cache, cache_index=cache_index,
-                               block_table=block_table,
-                               chunk_lens=chunk_lens)
+        dispatch counts (None: all).  A Mamba mixer takes the cache and
+        ``chunk_lens`` only: it has no positions, cache index or block
+        table."""
+        if self.mamba is not None:
+            out, cache = self.mamba(self.norm1(x), cache=cache,
+                                    chunk_lens=chunk_lens)
+        else:
+            out, cache = self.attn(self.norm1(x), positions=positions,
+                                   cache=cache, cache_index=cache_index,
+                                   block_table=block_table,
+                                   chunk_lens=chunk_lens)
         x = x + out
         aux = None
         if self.mlp is not None:
@@ -117,7 +136,7 @@ class Backbone(nn.Module):
     ``use_flash`` routes each layer's cache-free causal attention through
     the flash kernel (``cfg.attn_config(use_flash=True)``); prefill and
     decode, which write a cache, bidirectional attention, windowed
-    (local) layers and MLA layers are unaffected."""
+    (local) layers and MLA and Mamba layers are unaffected."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
                  use_flash: bool = False):

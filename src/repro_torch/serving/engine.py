@@ -13,9 +13,17 @@ Two decode regimes share the same step:
     retire independently.  ``prime()`` builds the prefix-primed cache the
     slot allocators reset retired slots back to.
 
-Each step writes the K/V cache in place — the reference donates the cache
-to its jitted step for the same effect — so the cache of a ``ServeState``
-belongs to the state ``step`` returns: never step a stale state again.
+Each step writes the cache in place (K/V, MLA latents, Mamba states) —
+the reference donates the cache to its jitted step for the same effect —
+so the cache of a ``ServeState`` belongs to the state ``step`` returns:
+never step a stale state again.
+
+The engine serves the dense, MoE and hybrid families: attention and MLA
+layers write K/V or latent rows, Mamba layers advance an O(1) recurrent
+state (prefill runs the full scan, whose final state fills the cache).
+Chunked prefill (``prefill_chunk > 1``) takes every one of them: attention
+and MLA caches mask their row writes and Mamba gates its recurrence per
+row; an xLSTM mixer, which has no row-gated state update, is refused.
 
 Engine methods run under ``torch.inference_mode()``.
 """
@@ -35,7 +43,8 @@ from repro_torch.serving.telemetry import NULL_TRACER
 @dataclasses.dataclass
 class ServeState:
     cache: list                          # per-layer {"k", "v", "pos"},
-                                         # MLA {"ckv", "krope", "pos"} or
+                                         # MLA {"ckv", "krope", "pos"},
+                                         # Mamba {"ssm", "conv"} or
                                          # page pools {"k_pages", ...}
     pos: torch.Tensor                    # int32 next absolute position —
                                          # scalar (lock-step) or (B,)
@@ -54,10 +63,18 @@ class Engine:
         # ``set_tracer`` rebinds it.
         self.tracer = NULL_TRACER
         chunk = self.cfg.serving.prefill_chunk
+        kinds = self.cfg.layer_kinds()
+        # xLSTM state updates have no row-gated form (as in the reference).
+        bad = sorted({k["mixer"] for k in kinds
+                      if k["mixer"] in ("mlstm", "slstm")})
+        if chunk > 1 and bad:
+            raise ValueError(
+                f"serving.prefill_chunk={chunk} unsupported with {bad} "
+                f"mixers (xLSTM has no row-masked state update); set "
+                f"prefill_chunk=1")
         # A chunk writes C distinct rows of every cache: at most the
         # smallest ring (a windowed layer's, else the cache itself).
-        slots = min(cache_rows(k["window"], self.max_len)
-                    for k in self.cfg.layer_kinds())
+        slots = min(cache_rows(k["window"], self.max_len) for k in kinds)
         if chunk > slots:
             raise ValueError(
                 f"serving.prefill_chunk={chunk} exceeds the smallest cache "
@@ -92,7 +109,8 @@ class Engine:
     @torch.inference_mode()
     def prime(self, *, compact: bool = False) -> ServeState:
         """Prefix-primed state for continuous batching: the cache holds only
-        the demux prefix's K/V, ``pos`` is a (B,) vector at ``prefix_len``.
+        the demux prefix's K/V (and a Mamba layer the state after the
+        prefix), ``pos`` is a (B,) vector at ``prefix_len``.
         With a non-prefix demux (or mux inactive) the cache is fresh and
         ``pos`` starts at 0.
 

@@ -5,10 +5,11 @@ Two halves:
 
   * ``KVSlotAllocator`` — owns the decode cache (one ``{"k", "v", "pos"}``
     dict per attention layer, ``{"ckv", "krope", "pos"}`` per MLA layer,
-    slot axis first) for B backbone slots, each shared by N
-    mux lanes, and supports per-slot reset: ``reset_slots(mask)`` restores
-    the masked slots to the primed template (prefix K/V for prefix-protocol
-    demuxers, zeros otherwise) and leaves live slots bit-for-bit untouched.
+    ``{"ssm", "conv"}`` per Mamba layer, slot axis first) for B backbone
+    slots, each shared by N mux lanes, and supports per-slot reset:
+    ``reset_slots(mask)`` restores the masked slots to the primed template
+    (prefix K/V for prefix-protocol demuxers, zeros otherwise) and leaves
+    live slots bit-for-bit untouched.
   * ``cache_bytes`` / ``paged_cache_bytes`` and their per-stream forms —
     analytic accounting of the bytes ``init_cache`` allocates.
 
@@ -38,8 +39,13 @@ def _layer_bytes(cfg: ModelConfig, kind: dict, batch: int,
                  rows: int) -> int:
     """Bytes of ``rows`` cache rows for ``batch`` slots (or pages) of one
     layer: K, V and pos of an attention layer; the latent, the rope key
-    and pos of an MLA layer."""
+    and pos of an MLA layer.  A Mamba layer has no rows: its float32 state
+    and its conv history in the compute dtype, per slot."""
     by = _dtype_bytes(cfg.dtype)
+    if kind["mixer"] == "mamba":
+        c = cfg.mamba
+        return (batch * c.d_inner * c.d_state * 4
+                + batch * (c.d_conv - 1) * c.d_inner * by)
     if kind["mixer"] == "mla":
         return batch * rows * (cfg.mla.cache_width * by + 4)
     return batch * rows * (cfg.n_kv_heads * cfg.head_dim_ * 2 * by + 4)
@@ -54,14 +60,16 @@ def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
 def paged_cache_bytes(cfg: ModelConfig, batch: int, max_len: int, *,
                       pool_pages: int, page_size: int) -> int:
     """Bytes of the paged decode cache (``serving/paging.py``): every
-    eligible layer holds a shared ``pool_pages``-page pool, trash page
-    included (an MLA layer's pages hold latent rows); a windowed layer whose ring is shorter than ``max_len`` keeps
-    its per-slot ring.  Pass ``table.pages_in_use + 1`` as ``pool_pages``
-    to count the pages actually allocated."""
+    eligible attention or MLA layer holds a shared ``pool_pages``-page
+    pool, trash page included (an MLA layer's pages hold latent rows); a
+    windowed layer whose ring is shorter than ``max_len`` keeps its
+    per-slot ring, and a Mamba layer its per-slot state.  Pass
+    ``table.pages_in_use + 1`` as ``pool_pages`` to count the pages
+    actually allocated."""
     total = 0
     for kind in cfg.layer_kinds():
         window = kind["window"]
-        if paged_eligible(window, max_len):
+        if kind["mixer"] != "mamba" and paged_eligible(window, max_len):
             total += _layer_bytes(cfg, kind, pool_pages, page_size)
         else:
             total += _layer_bytes(cfg, kind, batch,
@@ -114,7 +122,7 @@ def masked_restore(leaf, template, idx) -> None:
 def reset_cache_slots(cache, template, slot_mask) -> None:
     """Restore the masked slots of ``cache`` to ``template`` values; the
     other slots are not touched.  ``slot_mask``: (B,) bool."""
-    idx = _slot_index(slot_mask, cache[0]["pos"].device)
+    idx = _slot_index(slot_mask, next(iter(cache[0].values())).device)
     for layer, tmpl in zip(cache, template):
         for key, leaf in layer.items():
             masked_restore(leaf, tmpl[key], idx)

@@ -23,8 +23,9 @@ pages the position axis instead:
     (pos <- -1) when next allocated.
 
 Ineligible layers (a windowed layer whose ring is shorter than
-``max_len``) keep their contiguous per-slot rings inside the paged cache:
-they are imported from the primed template, reset through the same masked
+``max_len``, and every Mamba layer, whose recurrent state is O(1) per
+slot) keep their contiguous per-slot caches inside the paged cache: they
+are imported from the primed template, reset through the same masked
 restore as the contiguous allocator's, and their slot slice travels with a
 parked slot.
 
@@ -209,7 +210,7 @@ class PagedKVSlotAllocator:
         if template is None:
             template = init_cache(cfg, batch, max_len,
                                   device=resolve_device(device))
-        self.device = template[0]["pos"].device
+        self.device = next(iter(template[0].values())).device
         self.cache = init_cache(cfg, batch, max_len, device=self.device,
                                 page_pool=(self.pool_pages, ps))
         # Reset template of the contiguous layers (None for paged layers,
@@ -253,7 +254,8 @@ class PagedKVSlotAllocator:
         """A copy of a contiguous layer's primed template, padded to the
         live ring's width: a compact (prefix-sized) prime leaves the rows
         past the prefix unwritten, so zeros (``pos`` -1) reproduce the
-        full-size prime bitwise."""
+        full-size prime bitwise.  A Mamba state, which no prime sizes, is
+        copied whole."""
         out = {}
         for key, leaf in tmpl.items():
             full = torch.full_like(live[key], -1 if key == "pos" else 0)

@@ -595,6 +595,19 @@ def test_deepseek_smoke_paged_kernels_match_plain_path_on_card(cuda, chunk):
     _smoke_paged_kernels_match_plain_path(cuda, "deepseek-v3-671b", chunk)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_jamba_smoke_paged_kernels_match_plain_path_on_card(cuda, chunk):
+    """jamba-1.5-large-398b's smoke config (f32: Mamba + MoE, attention +
+    dense, Mamba + MoE, Mamba + dense) the same way: the paged pool (the
+    attention layer pooled, the Mamba states contiguous beside it) with
+    every kernel against the contiguous plain path, logits within 1e-4 x
+    max(1, max|plain|) at every step; the paged kernel launched once per
+    step by the one attention layer (Mamba layers launch none)."""
+    _smoke_paged_kernels_match_plain_path(cuda, "jamba-1.5-large-398b",
+                                          chunk)
+
+
 def _smoke_paged_kernels_match_plain_path(cuda, arch, chunk):
     import dataclasses
 
@@ -625,7 +638,8 @@ def _smoke_paged_kernels_match_plain_path(cuda, arch, chunk):
         engines.append((eng, alloc, primed))
     assert [any(key.endswith("_pages") for key in c)
             for c in engines[0][1].cache] == \
-        [k["window"] is None for k in cfg.layer_kinds()]
+        [k["window"] is None and k["mixer"] != "mamba"
+         for k in cfg.layer_kinds()]
     n = cfg.mux.n
     pos = engines[0][2].pos.cpu().numpy().copy()
     lens = np.full(b, chunk, np.int32)
@@ -735,6 +749,28 @@ def test_kernels_at_deepseek_shapes_on_card(cuda, name, shape):
     _kernel_matches_plain_version_at(cuda, name, shape)
 
 
+# jamba-1.5-large-398b's kernel shapes in chip_smoke.py's [hybrid] phase
+# (d 8192, H 16384; 64 heads over 8 KV heads of 128, n_rep 8: 8 query rows
+# per KV head at C 1 and 32 at C 4), bf16.
+JAMBA_CARD = [
+    ("hadamard_mux", (8, 8, 1, 8192)), ("hadamard_mux", (8, 8, 4, 8192)),
+    ("hadamard_mux", (1, 8, 520, 8192)),
+    ("decode_demux", (8, 8, 1, 8192)), ("decode_demux", (8, 8, 4, 8192)),
+    ("index_embed_demux", (1, 8, 512, 8192)),
+    ("flash_attention", (1, 520, 64, 128)),
+    ("paged_decode_attention", (8, 1, 64)),
+    ("paged_decode_attention", (8, 4, 64)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", JAMBA_CARD)
+def test_kernels_at_jamba_shapes_on_card(cuda, name, shape):
+    """Each kernel at jamba's shapes against its plain version, as at
+    llama4-scout's (the paged kernel at n_rep 8)."""
+    _kernel_matches_plain_version_at(cuda, name, shape)
+
+
 def _kernel_matches_plain_version_at(cuda, name, shape):
     g = torch.Generator(device=cuda).manual_seed(0)
     bf16 = torch.bfloat16
@@ -753,8 +789,9 @@ def _kernel_matches_plain_version_at(cuda, name, shape):
                                          causal=True)
         got = flash_kernel.flash_attention(q, k, v, causal=True)
     elif name == "paged_decode_attention":
-        b, c = shape
-        args = _paged_case(cuda, bf16, b, 40, 8, 128, b * 9 + 1, 16, 9, c)
+        b, c, *heads = shape          # 40 query heads unless given
+        args = _paged_case(cuda, bf16, b, heads[0] if heads else 40, 8,
+                           128, b * 9 + 1, 16, 9, c)
         f32 = [t.float() if t.is_floating_point() else t for t in args]
         want = paged_ref.paged_attention(*f32, scale=128 ** -0.5,
                                          causal=True)
@@ -828,6 +865,52 @@ def test_mla_matches_the_cpu_and_repeats_on_card(cuda):
     want = _mla_steps(torch.device("cpu"))
     _build.LAUNCHES.clear()
     first, second = _mla_steps(cuda), _mla_steps(cuda)
+    torch.cuda.synchronize()
+    assert not _build.LAUNCHES
+    for w, a, b in zip(want, first, second):
+        assert torch.equal(a, b)
+        assert (a.cpu() - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())
+
+
+def _mamba_steps(device, seed=0):
+    """An f32 Mamba (d 64, d_inner 128, state 16, scan chunks of 8) on
+    ``device``, weights from ``seed``: its outputs over a cache-free scan
+    of 21 positions (a padded last chunk), a prefill of 5 into a fresh
+    cache, two one-token steps and a 3-row chunked step with ragged
+    counts; all on inputs made on the CPU."""
+    from repro_torch.nn.ssm import Mamba, MambaConfig
+
+    cfg = MambaConfig(dim=64, d_state=16, chunk=8)
+    model = Mamba(cfg, generator=torch.Generator().manual_seed(seed)).eval()
+    model.to(device)
+    g = torch.Generator().manual_seed(seed + 1)
+
+    def x(b, l):
+        return torch.randn((b, l, cfg.dim), generator=g).to(device)
+    outs = []
+    with torch.no_grad():
+        outs.append(model(x(3, 21))[0])
+        cache = Mamba.init_cache(cfg, 3, torch.float32, device)
+        outs.append(model(x(3, 5), cache=cache)[0])
+        for _ in range(2):
+            outs.append(model(x(3, 1), cache=cache)[0])
+        lens = torch.tensor([3, 0, 2], device=device)
+        outs.append(model(x(3, 3), cache=cache, chunk_lens=lens)[0])
+        outs += [cache["ssm"], cache["conv"]]
+    return outs
+
+
+@pytest.mark.cuda
+def test_mamba_matches_the_cpu_and_repeats_on_card(cuda):
+    """The Mamba module in f32 on the card, in each of its modes (the
+    cache-free scan, prefill, one-token decode, row-gated chunked decode)
+    and its final states, against the same weights and inputs on the CPU
+    within 1e-4 x max(1, max|CPU|), and bitwise the same on a second run.
+    Mamba launches none of the port's kernels."""
+    want = _mamba_steps(torch.device("cpu"))
+    _build.LAUNCHES.clear()
+    first, second = _mamba_steps(cuda), _mamba_steps(cuda)
     torch.cuda.synchronize()
     assert not _build.LAUNCHES
     for w, a, b in zip(want, first, second):
