@@ -130,15 +130,29 @@ Phases, any failure of which ends the run with a non-zero exit:
      served and evaluated as in phase 10: the Mamba states contiguous
      beside the page pool, the paged kernel launched by the attention
      layer (n_rep 8), flash by it at eval, and the device time of the
-     ``mamba`` label and of the MoE stages printed.
+     ``mamba`` label and of the MoE stages printed;
+ 13. xLSTM: ``xlstm-125m`` at full width and depth (12 layers: 8 mLSTM of
+     d_inner 1536 over 4 heads of 384, 4 sLSTM; d 768, vocab 50304; about
+     160 M parameters), N=8, bf16, served as in phase 10 at prefill_chunk
+     1 with no layer in the page pool (every recurrent state contiguous,
+     the pool's bytes equal to ``paged_cache_bytes``), the mux and both
+     demux kernels on and neither attention kernel launched, an
+     ``Engine`` at prefill_chunk 4 refused; evaluated as in phase 10 (L
+     512); the device time of the ``mlstm`` and ``slstm`` labels and the
+     device launches per step printed;
+ 14. the image models: ``MuxMLP`` and ``MuxCNN`` at the paper's sizes
+     (20x20, hidden 100, groups 20 / 84, N 4) with every registered mux
+     strategy that validates at d 400, on a batch of the synthetic
+     digits: logits, ``image_loss`` and every gradient on the card against
+     the same weights on the CPU in f32 within 1e-4 x max(1, max|CPU|).
 
 Phase 2 also holds the mux and both demux kernels at every shape phases
-8-12 launch them (d 2560, 3072, 5120, 7168, 8192 and 18432), the paged
+8-13 launch them (d 768, 2560, 3072, 5120, 7168, 8192 and 18432), the paged
 kernel at gemma3-4b's chunked shape (64 rows x n_rep 2, hd 256),
 llama4-scout's (n_rep 5, hd 128, C 1 and 4) and jamba's (n_rep 8, C 1 and
 4) and flash attention at the five models' shapes in phases 9, 10 and 12
 against their plain versions.  Each phase's seconds are printed.  The
-mux and demux launches of phases 3-12 record their shapes, and the run
+mux and demux launches of phases 3-13 record their shapes, and the run
 fails if one of them was not held in phase 2 (the launch plans are chosen
 from the shape).
 
@@ -347,7 +361,12 @@ def check_kernels(torch, gen):
             (8, 8, 8, 7168, bf16), (1, 8, 520, 7168, bf16),
             # jamba-1.5-large-398b's [hybrid] shapes at d 8192
             (8, 8, 1, 8192, bf16), (8, 8, 4, 8192, bf16),
-            (8, 8, 8, 8192, bf16), (1, 8, 520, 8192, bf16)):
+            (8, 8, 8, 8192, bf16), (1, 8, 520, 8192, bf16),
+            # xlstm-125m's [ssm] shapes at d 768 (its comparisons run in
+            # f32): a decode step of 8 slots, the prime of the 8-token
+            # prefix, the eval
+            (8, 8, 1, 768, both), (8, 8, 8, 768, both),
+            (1, 8, 520, 768, both)):
         x32, v32 = randn(b, n, l, d), randn(n, d)
         for dtype in dtypes:
             x, v = x32.to(dtype), v32.to(dtype)
@@ -403,7 +422,13 @@ def check_kernels(torch, gen):
                     ("decode_demux", 8, 8, 1, 8192, 16384, bf16),
                     ("decode_demux", 8, 8, 4, 8192, 16384, bf16),
                     ("index_embed_demux", 8, 8, 1, 8192, 16384, bf16),
-                    ("index_embed_demux", 1, 8, 512, 8192, 16384, bf16))
+                    ("index_embed_demux", 1, 8, 512, 8192, 16384, bf16),
+                    # xlstm-125m's [ssm] shapes (d 768, H 1536; in f32
+                    # too): a decode step of 8 slots, a one-row prefill
+                    # demux, the eval
+                    ("decode_demux", 8, 8, 1, 768, 1536, both),
+                    ("index_embed_demux", 8, 8, 1, 768, 1536, both),
+                    ("index_embed_demux", 1, 8, 512, 768, 1536, both))
     for name, b, n, l, d, hid, dtypes in demux_shapes:
         h32, p32 = randn(b, l, d), randn(b, n, d)
         w1_32, b1_32 = randn(hid, 2 * d, scale=(2 * d) ** -0.5), \
@@ -1234,26 +1259,39 @@ def device_rows(events, steps: int) -> list[tuple[float, str]]:
                    and e.self_device_time_total > 0), reverse=True)
 
 
+MIXER_LABELS = ("mla", "mamba", "mlstm", "slstm")
+
+
+def device_launches(events, steps: int) -> float:
+    """Kernels, copies and fills the device ran per step (the profiler's
+    device events, user annotations excluded)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / steps
+
+
 def print_stages(events, steps: int, label: str) -> None:
     """Device ms per step of each profiler label of the MoE block
     (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
-    ``moe.shared``), of MLA (``mla``) and of Mamba (``mamba``): the
-    kernels launched inside the label; MLA's and Mamba's also as a share
-    of the device's busy time."""
+    ``moe.shared``) and of the MLA, Mamba, mLSTM and sLSTM mixers
+    (``mla``, ``mamba``, ``mlstm``, ``slstm``): the kernels launched
+    inside the label; the mixers' also as a share of the device's busy
+    time."""
     from torch.autograd import DeviceType
 
     stages = sorted((e.key, e.device_time_total / 1e3 / steps, e.count)
                     for e in events if (e.key.startswith("moe.")
-                                        or e.key in ("mla", "mamba"))
+                                        or e.key in MIXER_LABELS)
                     and e.device_type == DeviceType.CPU)
     if stages:
         busy = sum(t for t, _ in device_rows(events, steps))
-        print(f"[profile] {label}: MoE, MLA and Mamba stages, device ms "
-              f"per step: "
+        print(f"[profile] {label}: MoE stages and mixers, device ms per "
+              f"step: "
               + ", ".join(f"{key} {t:.4f} (x{count / steps:.0f})"
                           for key, t, count in stages))
         for key, t, _ in stages:
-            if key in ("mla", "mamba") and busy:
+            if key in MIXER_LABELS and busy:
                 print(f"[profile] {label}: {key} share of device busy time "
                       f"{t / busy:.4f} ({t:.4f} of {busy:.4f} ms)")
 
@@ -1291,7 +1329,8 @@ def profile_scheduler(torch, sched, trace, warm: int = 12, steps: int = 8,
               "(the profiler saw no device activity)")
         return
     print(f"[profile] {label}: device busy {busy:.3f} ms per "
-          f"step, idle share {1 - busy / wall:.3f}")
+          f"step, idle share {1 - busy / wall:.3f}, "
+          f"{device_launches(events, steps):.0f} device launches per step")
     for t, key in rows[:10]:
         print(f"[profile]   {t:8.4f} ms  {key[:90]}")
     print_stages(events, steps, label)
@@ -1930,6 +1969,7 @@ def profile_eval(torch, step, state, batch, index, wall: float,
     flash = sum(t for t, key in rows if "flash_attention" in key)
     print(f"[profile] {label}: {wall:.3f} ms wall (unprofiled median), "
           f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{device_launches(events, 1):.0f} device launches, "
           f"flash_attention {flash:.3f} ms = {flash / busy:.3f} of busy")
     for t, key in rows[:12]:
         print(f"[profile]   {t:9.4f} ms  {key[:90]}")
@@ -2431,7 +2471,7 @@ class RoutingTape:
         if self.mode == "replay" and self.at != len(self.calls):
             raise SystemExit(f"{tag} FAIL: the plain run made {self.at} MoE "
                              f"calls, the kernel run {len(self.calls)}")
-        if self.mode == "replay":
+        if self.mode == "replay" and self.calls:
             print(f"{tag} routing, plain router vs the kernel run's: "
                   f"{self.id_rows} of {self.rows} valid rows chose other "
                   f"experts (in {self.calls_differing} of {self.at} MoE "
@@ -2446,7 +2486,7 @@ def run_moe(torch, seed: int):
     """llama4-scout-17b-a16e at full width (d 5120, 40 heads over 8 KV
     heads, 16 experts of 8192 top-1 and a shared expert, vocab 202048),
     8 of its 48 layers, N = 8, bf16, weights from ``seed``, the config's
-    own capacity_factor 1.25, through ``serve_and_eval_moe``."""
+    own capacity_factor 1.25, through ``serve_and_eval``."""
     from repro_torch.configs.registry import get_config
 
     full = get_config("llama4-scout-17b-a16e", mux_n=8)
@@ -2463,7 +2503,7 @@ def run_moe(torch, seed: int):
               f"{sorted(map(str, router))}), {weights / 1e9:.2f} GB of "
               f"weights; reduced: {MOE_LAYERS} of {full.n_layers} layers")
 
-    return serve_and_eval_moe(torch, seed, base, "[moe]", describe)
+    return serve_and_eval(torch, seed, base, "[moe]", describe)
 
 
 # ---------------------------------------------------------------------------
@@ -2478,7 +2518,7 @@ def run_mla(torch, seed: int):
     1536, latent 512 + rope 64 per token, nope 128, v 128; dense layers of
     18432; 256 experts of 2048 sigmoid top-8 and a shared expert; vocab
     129280), 4 of its 61 layers (the 3 dense ones and 1 MoE), N = 8,
-    bf16, weights from ``seed``, through ``serve_and_eval_moe``: the
+    bf16, weights from ``seed``, through ``serve_and_eval``: the
     latent rows in the page pool, the mux, decode-demux and index-embed
     demux kernels on, and neither the paged nor the flash kernel
     launched (MLA attends on the plain path, as in the reference)."""
@@ -2505,7 +2545,7 @@ def run_mla(torch, seed: int):
               f"weights; layers {kinds}; reduced: {MLA_LAYERS} of "
               f"{full.n_layers} layers")
 
-    return serve_and_eval_moe(torch, seed, base, "[mla]", describe)
+    return serve_and_eval(torch, seed, base, "[mla]", describe)
 
 
 # ---------------------------------------------------------------------------
@@ -2522,7 +2562,7 @@ def run_hybrid(torch, seed: int):
     of 128; 16 experts of 24576 top-2; dense MLPs of 24576; vocab 65536),
     its layers 3-5 of 72 as a 3-layer config whose ``layer_kinds`` are the
     full model's, N = 8, bf16, weights from ``seed``, through
-    ``serve_and_eval_moe``: the Mamba states contiguous beside the page
+    ``serve_and_eval``: the Mamba states contiguous beside the page
     pool, the paged kernel (n_rep 8) and at eval flash launched by the
     attention layer, Mamba on the plain path (the reference's is plain
     jnp).  The smallest prefix of the model that holds its attention layer
@@ -2560,26 +2600,34 @@ def run_hybrid(torch, seed: int):
         print(f"[hybrid] reduced: layers {first}-{stop - 1} of "
               f"{full.n_layers}")
 
-    return serve_and_eval_moe(torch, seed, base, "[hybrid]", describe)
+    return serve_and_eval(torch, seed, base, "[hybrid]", describe)
 
 
-def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
-    """An MoE model ``base`` at full width, N = 8, bf16, weights from
-    ``seed``.  Serving: ``ContinuousScheduler`` on the paged pool
-    (page_size 16, 8 slots) with the mux, decode-demux and (for attention
-    layers) paged kernels serves a 40-request Poisson trace (prompt 32, 16
-    new tokens) at prefill_chunk 1 and 4; a contiguous plain run over a
-    ``with_config`` view replays the kernel run's sampled tokens and its
-    routing (``RoutingTape``): equal decode steps and tokens, every step's
-    logits within LOGIT_TOL, greedy picks equal where clear; a paged plain
-    run (tokens replayed) gives the same steps and peak pages; the pool
-    holds ``paged_cache_bytes`` bytes.  Evaluation: ``make_eval_step``
+def serve_and_eval(torch, seed: int, base, tag: str, describe,
+                   chunks=(1, 4), counts=None, profile: bool = True):
+    """A model ``base`` at full width, N = 8, in its dtype (bf16 but for
+    ``[ssm]``), weights from ``seed``; ``describe(model, weights,
+    router)`` prints what it is, ``counts``, when given, takes each
+    chunk's (decode steps, tokens, peak pages), and ``profile`` False
+    skips the two profiles.  Serving:
+    ``ContinuousScheduler`` on the paged pool (page_size 16, 8 slots) with
+    the mux, decode-demux and (for attention layers) paged kernels serves
+    a 40-request Poisson trace (prompt 32, 16 new tokens) at each
+    prefill_chunk of ``chunks``; a contiguous plain run over a
+    ``with_config`` view replays the kernel run's sampled tokens and, for
+    MoE layers, its routing (``RoutingTape``): equal decode steps and
+    tokens, every step's logits within LOGIT_TOL, greedy picks equal where
+    clear; a paged plain run (tokens replayed) gives the same steps and
+    peak pages; the pool (with the recurrent states) holds
+    ``paged_cache_bytes`` bytes; a model with no attention layer launches
+    neither attention kernel.  Evaluation: ``make_eval_step``
     through a ``use_flash`` view (flash on attention layers) and the mux
     and demux kernels (1 group, L 512) against the plain view with the
-    routing replayed: logits within LOGIT_TOL, task loss and ``moe_aux``
-    within EVAL_LOSS_TOL.  Peak memory under 70 GB; eval-step times on and
-    off in turns; profiles of a scheduler step and an eval step with the
-    MoE stages', MLA's and Mamba's device time."""
+    routing replayed: logits within LOGIT_TOL, task and retrieval losses
+    (and ``moe_aux`` with MoE layers) within EVAL_LOSS_TOL.  Peak memory
+    under 70 GB; eval-step times on and off in turns; profiles of a
+    scheduler step and an eval step with the MoE stages' and the mixers'
+    device time."""
     import gc
 
     from repro_torch.configs.base import ServingConfig
@@ -2617,16 +2665,17 @@ def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
     torch.cuda.reset_peak_memory_stats()
     print(f"{tag} peak memory while the weights were drawn {init_peak:.2f} "
           f"GB (float32 draws, then the cast)")
-    if router != {torch.float32}:
+    if n_moe and router != {torch.float32}:
         raise SystemExit(f"{tag} FAIL: the router weight is not float32")
     trace = poisson_trace(n_requests, rate=rate, prompt_len=prompt_len,
                           gen_len=gen_len, vocab=base.vocab,
                           max_total=max_total, seed=seed)
     print(f"{tag} poisson_trace({n_requests}, rate={rate}, prompt_len="
           f"{prompt_len}, gen_len={gen_len}, max_total={max_total}), batch "
-          f"{batch}, page_size 16; capacity per expert at a decode step of "
-          f"{batch} rows: {capacity(batch, moe)}, at a chunk of 4 rows: "
-          f"{capacity(4 * batch, moe)}")
+          f"{batch}, page_size 16"
+          + (f"; capacity per expert at a decode step of {batch} rows: "
+             f"{capacity(batch, moe)}, at a chunk of 4 rows: "
+             f"{capacity(4 * batch, moe)}" if n_moe else ""))
     tape = RoutingTape(tag)
     tape.install()
 
@@ -2643,7 +2692,7 @@ def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
     scheduler(model, 1).run([r.fresh() for r in trace[:8]])   # warm-up
     torch.cuda.synchronize()
     launches = {}
-    for chunk in (1, 4):
+    for chunk in chunks:
         tape.start("record")
         _build.LAUNCHES.clear()
         sched = scheduler(model, chunk)
@@ -2660,8 +2709,8 @@ def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
               f"requests, {stats.decode_steps} decode steps, "
               f"{stats.generated_tokens} tokens in {dt:.4f} s = "
               f"{stats.generated_tokens / dt:.1f} tok/s, "
-              f"{dt / stats.decode_steps * 1e3:.3f} ms per step (bf16, "
-              f"{torch.cuda.get_device_name(0)}); peak {stats.peak_pages}/"
+              f"{dt / stats.decode_steps * 1e3:.3f} ms per step ({base.dtype}"
+              f", {torch.cuda.get_device_name(0)}); peak {stats.peak_pages}/"
               f"{alloc.table.usable_pages} pages; {len(tape.calls)} MoE "
               f"calls; kernel launches {run_launches}")
         if stats.finished != n_requests:
@@ -2688,12 +2737,19 @@ def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
         for name in ("hadamard_mux", "decode_demux"):
             if not run_launches.get(name):
                 raise SystemExit(f"{tag} FAIL: {name} never launched")
+        if not n_attn and (run_launches.get("paged_decode_attention") or
+                           run_launches.get("flash_attention")):
+            raise SystemExit(f"{tag} FAIL: a model with no attention layer "
+                             f"launched an attention kernel")
         if len(tape.calls) != n_moe * (stats.decode_steps + 1):
             raise SystemExit(f"{tag} FAIL: {len(tape.calls)} MoE calls, "
                              f"expected one per MoE layer and step and the "
                              f"prime's")
         for name, count in run_launches.items():
             launches[name] = launches.get(name, 0) + count
+        if counts is not None:
+            counts[chunk] = (stats.decode_steps, stats.generated_tokens,
+                             stats.peak_pages)
 
         outputs = {q.rid: list(q.output) for q in sched.finished}
         tape.start("replay")           # the prime's MoE calls too
@@ -2732,8 +2788,9 @@ def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
         del forced, pforced, sched, psched, ppsched
         gc.collect()
     serve_peak = torch.cuda.max_memory_allocated() / 1e9
-    profile_scheduler(torch, scheduler(model, 1), trace, warm=8, steps=4,
-                      label=f"{tag[1:-1]} scheduler step")
+    if profile:
+        profile_scheduler(torch, scheduler(model, 1), trace, warm=8,
+                          steps=4, label=f"{tag[1:-1]} scheduler step")
 
     # Evaluation through flash and the mux and demux kernels against the
     # plain view, the plain run replaying the kernel run's routing.
@@ -2788,7 +2845,7 @@ def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
     if not (err <= tol and bool(logits.isfinite().all())):
         raise SystemExit(f"{tag} FAIL: eval logits disagree")
     del logits, plain_logits
-    for key in ("task_loss", "retr_loss", "moe_aux"):
+    for key in ("task_loss", "retr_loss") + (("moe_aux",) if n_moe else ()):
         got, ref = float(metrics[key]), float(plain_metrics[key])
         rel = abs(got - ref) / abs(ref)
         print(f"{tag} eval {key}: flash + kernels {got:.6g}, plain "
@@ -2809,12 +2866,271 @@ def serve_and_eval_moe(torch, seed: int, base, tag: str, describe):
           f"{serve_peak:.2f} GB)")
     if not peak_gb < 70:
         raise SystemExit(f"{tag} FAIL: peak memory {peak_gb:.2f} GB")
-    profile_eval(torch, step, state, batch_, index,
-                 statistics.median(walls["flash + kernels"]),
-                 label=f"{tag[1:-1]} eval step")
+    if profile:
+        profile_eval(torch, step, state, batch_, index,
+                     statistics.median(walls["flash + kernels"]),
+                     label=f"{tag[1:-1]} eval step")
     tape.uninstall()
     del state, pstate, model, plain, paged_plain, flash
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: mLSTM and sLSTM in xlstm-125m
+# ---------------------------------------------------------------------------
+
+def run_ssm(torch, seed: int):
+    """xlstm-125m at full width and depth (12 layers: 8 mLSTM of d_inner
+    1536 over 4 heads of 384, 4 sLSTM with their GeGLU FFN of 1024; d 768,
+    vocab 50304; about 160 M parameters), N = 8, weights from ``seed``:
+    no layer in the page pool (every state contiguous), the mux,
+    decode-demux and index-embed demux kernels on, neither attention
+    kernel launched, the xLSTM mixers on the plain path (the reference's
+    are plain jnp); an ``Engine`` at prefill_chunk 4 must be refused,
+    naming xLSTM, as the reference refuses it.
+
+    The comparisons of ``serve_and_eval`` (prefill_chunk 1) run in
+    float32: with random weights the model is too sensitive to rounding
+    for any two bf16 runs to agree within LOGIT_TOL (the reference itself
+    in bf16 is about 20% of max|logit| off its float32 logits; here the
+    plain path's one decode step in bf16 against float32 on the same
+    weights is printed).  The model in bf16 then serves the trace and
+    evaluates with the kernels on, for its times and profiles (the
+    float32 runs are not profiled): the same counts as the float32 run,
+    finite logits and losses."""
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.retrieval import retrieval_index
+    from repro_torch.data import RetrievalTask, mux_batches
+    from repro_torch.kernels import _build
+    from repro_torch.models import Backbone
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import (ContinuousScheduler,
+                                               poisson_trace)
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    base = get_config("xlstm-125m", mux_n=8)
+    f32 = dataclasses.replace(base, dtype="float32", param_dtype="float32")
+
+    def describe(model, weights, router):
+        x = base.xlstm
+        kinds = [k["mixer"] for k in base.layer_kinds()]
+        per = {name: sum(p.numel() for n, p in model.named_parameters()
+                         if f".{name}." in n) // kinds.count(name)
+               for name in ("mlstm", "slstm")}
+        print(f"[ssm] {base.name}: d={base.d_model}, {base.n_layers} layers "
+              f"({kinds.count('mlstm')} mLSTM of d_inner {x.d_inner} over "
+              f"{x.n_heads} heads of {x.head_dim}, {per['mlstm'] / 1e6:.2f} "
+              f"M parameters a layer; {kinds.count('slstm')} sLSTM, "
+              f"{per['slstm'] / 1e6:.2f} M a layer, at layers "
+              f"{[i for i, k in enumerate(kinds) if k == 'slstm']}), vocab "
+              f"{base.vocab}, N={base.mux.n}, "
+              f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+              f"parameters ({weights / 1e9:.3f} GB in {model.cfg.dtype}); "
+              f"nothing cut")
+        wide = model.with_config(dataclasses.replace(
+            model.cfg, serving=dataclasses.replace(model.cfg.serving,
+                                                   prefill_chunk=4)))
+        try:
+            Engine(wide, batch=8, max_len=64)
+        except ValueError as e:
+            if "xLSTM" not in str(e):
+                raise
+            print(f"[ssm] prefill_chunk 4 refused: {e}")
+        else:
+            raise SystemExit("[ssm] FAIL: an Engine at prefill_chunk 4 was "
+                             "not refused")
+
+    counts = {}
+    launches = serve_and_eval(torch, seed, f32, "[ssm]", describe,
+                              chunks=(1,), counts=counts, profile=False)
+
+    # bf16: the same trace and eval with the kernels on, for times.
+    batch, gen_len, prompt_len = 8, 16, 32
+    max_total = prompt_len * 2 + gen_len * 4 + 1
+    kernels = dataclasses.replace(
+        base, mux=dataclasses.replace(base.mux, use_kernel=True),
+        serving=ServingConfig(paged=True, page_size=16, fuse_demux=True))
+    model = Backbone(kernels, seed=seed, device="cuda").eval()
+    plain = model.with_config(dataclasses.replace(
+        base, serving=ServingConfig()))
+    wide = Backbone(f32, seed=seed, device="cuda").eval()
+    with torch.no_grad():
+        for p, q in zip(wide.parameters(), model.parameters()):
+            p.copy_(q.float())             # the bf16 weights, in float32
+    toks = torch.randint(0, base.vocab, (batch, base.mux.n), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(seed))
+    step0 = []
+    for m in (plain, wide):
+        eng = Engine(m, batch=batch, max_len=max_total)
+        logits, _ = eng.step(eng.prime(), toks)
+        step0.append(logits.float())
+    err = (step0[0] - step0[1]).abs().max().item()
+    top = step0[1].abs().max().item()
+    print(f"[ssm] one decode step on the plain path, bf16 against float32 "
+          f"on the same (bf16) weights: max_abs_err {err:.4g} of max|logit| "
+          f"{top:.4g} ({err / top:.4f}; LOGIT_TOL {LOGIT_TOL})")
+    del wide, step0
+    trace = poisson_trace(40, rate=8.0, prompt_len=prompt_len,
+                          gen_len=gen_len, vocab=base.vocab,
+                          max_total=max_total, seed=seed)
+
+    def scheduler():
+        return ContinuousScheduler(Engine(model, batch=batch,
+                                          max_len=max_total))
+    scheduler().run([r.fresh() for r in trace[:8]])             # warm-up
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    sched = scheduler()
+    forced = []
+    record_teacher_forced(sched, forced, pick=last_row, every_step=True)
+    t0 = time.perf_counter()
+    stats = sched.run([r.fresh() for r in trace])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    run_launches = dict(_build.LAUNCHES)
+    finite = all(bool(f.isfinite().all()) for f in forced)
+    print(f"[ssm] bf16 prefill_chunk 1: {stats.finished}/{len(trace)} "
+          f"requests, {stats.decode_steps} decode steps, "
+          f"{stats.generated_tokens} tokens in {dt:.4f} s = "
+          f"{stats.generated_tokens / dt:.1f} tok/s, "
+          f"{dt / stats.decode_steps * 1e3:.3f} ms per step "
+          f"({torch.cuda.get_device_name(0)}); peak {stats.peak_pages} "
+          f"pages; kernel launches {run_launches}; logits finite {finite}")
+    got = (stats.decode_steps, stats.generated_tokens, stats.peak_pages)
+    if got != counts[1] or not finite:
+        raise SystemExit(f"[ssm] FAIL: bf16 counts {got} (float32 "
+                         f"{counts[1]}) or non-finite logits")
+    if run_launches.get("paged_decode_attention") or \
+            run_launches.get("flash_attention"):
+        raise SystemExit("[ssm] FAIL: an attention kernel was launched")
+    for name, count in run_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    del forced
+    profile_scheduler(torch, scheduler(), trace, warm=8, steps=4,
+                      label="ssm bf16 scheduler step")
+
+    seq_len = 512
+    tcfg = TrainConfig(task="lm")
+    flash = model.with_config(dataclasses.replace(
+        kernels, serving=ServingConfig()), use_flash=True)
+    state, pstate = {"model": flash}, {"model": plain}
+    batch_ = {k: torch.as_tensor(v).long().cuda() for k, v in next(iter(
+        mux_batches(RetrievalTask(vocab=base.vocab, seq_len=seq_len),
+                    groups=1, n_mux=base.mux.n, steps=1,
+                    seed=seed))).items()}
+    index = retrieval_index(torch.Generator(device="cuda").manual_seed(seed),
+                            1, base.mux.n, seq_len)
+    step = Trainer.make_eval_step(flash.cfg, tcfg)
+    plain_step = Trainer.make_eval_step(plain.cfg, tcfg)
+    _build.LAUNCHES.clear()
+    metrics = step(state, batch_, None, retr_index=index)
+    plain_metrics = plain_step(pstate, batch_, None, retr_index=index)
+    torch.cuda.synchronize()
+    for name, count in _build.LAUNCHES.items():
+        launches[name] = launches.get(name, 0) + count
+    print(f"[ssm] bf16 eval (1 group, L {seq_len}): launches "
+          f"{dict(_build.LAUNCHES)}; "
+          + ", ".join(f"{k} kernels {float(metrics[k]):.6g} plain "
+                      f"{float(plain_metrics[k]):.6g}"
+                      for k in ("task_loss", "retr_loss")))
+    if not all(math.isfinite(float(m[k])) for m in (metrics, plain_metrics)
+               for k in ("task_loss", "retr_loss")):
+        raise SystemExit("[ssm] FAIL: bf16 eval losses not finite")
+    walls = {"kernels": [], "plain": []}
+    runs = {"kernels": (step, state), "plain": (plain_step, pstate)}
+    for label in ("kernels", "plain") * 2:                     # in turns
+        fn, st = runs[label]
+        walls[label].append(eval_step_ms(torch, fn, st, [batch_], [index]))
+    print("[ssm] bf16 eval step wall ms (in turns): "
+          + ", ".join(f"{label} {[round(t, 3) for t in w]}"
+                      for label, w in walls.items())
+          + f"; peak memory of the phase "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    profile_eval(torch, step, state, batch_, index,
+                 statistics.median(walls["kernels"]),
+                 label="ssm bf16 eval step")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the image models
+# ---------------------------------------------------------------------------
+
+def run_image(torch, seed: int):
+    """``MuxMLP`` and ``MuxCNN`` at the paper's sizes (20x20, 10 classes,
+    hidden 100, groups 20 / 84, N 4) with every registered mux strategy
+    that validates at d 400, f32, weights from ``seed``, on a batch of
+    the port's synthetic digits (32 groups): logits, ``image_loss`` and
+    every parameter's gradient on the card against the same weights and
+    batch on the CPU within 1e-4 x max(1, max|CPU|); the image mux runs
+    the strategies' plain ``combine`` (no kernel launch), as the
+    reference's does."""
+    import numpy as np
+
+    from repro_torch.core.strategies import get_mux, list_mux_strategies
+    from repro_torch.data.images import SyntheticDigits
+    from repro_torch.kernels import _build
+    from repro_torch.models import image
+
+    n, groups = 4, 32
+    data = SyntheticDigits(seed=seed).sample(
+        groups * n, np.random.default_rng(seed))
+    imgs = torch.from_numpy(data["images"].reshape(groups, n, 20, 20))
+    labels = torch.from_numpy(data["labels"].reshape(groups, n))
+    names = []
+    for name in list_mux_strategies():
+        try:
+            get_mux(name).validate(image.ImageMuxConfig(n=n), 400)
+        except ValueError as e:
+            print(f"[image] {name}: skipped ({e})")
+            continue
+        names.append(name)
+    print(f"[image] strategies that validate at d 400, N {n}: {names}")
+    _build.LAUNCHES.clear()
+    worst = 0.0
+    for name in names:
+        cfg = image.ImageMuxConfig(n=n, strategy=name)
+        for cls in (image.MuxMLP, image.MuxCNN):
+            cpu = cls(cfg, seed=seed, device="cpu")
+            card = cls(cfg, seed=seed, device="cpu").to("cuda")
+            outs, times = [], []
+            for m, dev in ((cpu, "cpu"), (card, "cuda")):
+                t0 = time.perf_counter()
+                logits = m(imgs.to(dev))
+                loss, acc = image.image_loss(logits, labels.to(dev))
+                grads = torch.autograd.grad(loss, list(m.parameters()),
+                                            allow_unused=True)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                outs.append([logits.detach(), loss.detach()]
+                            + [g for g in grads if g is not None])
+            if len(outs[0]) != len(outs[1]):
+                raise SystemExit(f"[image] FAIL: {cls.__name__} {name}: "
+                                 f"the card and the CPU differ in which "
+                                 f"parameters have a gradient")
+            ratio = max((a.cpu() - w).abs().max().item()
+                        / max(1.0, w.abs().max().item())
+                        for w, a in zip(*outs))
+            worst = max(worst, ratio)
+            print(f"[image] {cls.__name__} {name}: loss "
+                  f"{outs[1][1].item():.6f}, accuracy {acc.item():.4f}, "
+                  f"{len(outs[0]) - 2} gradients; "
+                  f"card vs CPU max err {ratio:.3g} x max(1, max|CPU|) (tol "
+                  f"1e-4); first forward + backward {times[1]:.1f} ms on the "
+                  f"card, {times[0]:.1f} ms on the CPU (host clock, build "
+                  f"included)")
+            if not (ratio <= 1e-4 and bool(outs[1][0].isfinite().all())):
+                raise SystemExit(f"[image] FAIL: {cls.__name__} {name} "
+                                 f"disagrees with the CPU")
+    if _build.LAUNCHES:
+        raise SystemExit(f"[image] FAIL: the image models launched "
+                         f"{dict(_build.LAUNCHES)}")
+    print(f"[image] {2 * len(names)} models held, worst {worst:.3g} of the "
+          f"tolerance scale")
+    return {}
 
 
 def main(argv=None) -> int:
@@ -2852,7 +3168,8 @@ def main(argv=None) -> int:
                        ("eval", run_eval), ("router", run_router),
                        ("train", run_train), ("window", run_window),
                        ("dense", run_dense), ("moe", run_moe),
-                       ("mla", run_mla), ("hybrid", run_hybrid)):
+                       ("mla", run_mla), ("hybrid", run_hybrid),
+                       ("ssm", run_ssm), ("image", run_image)):
         t0 = time.perf_counter()
         by_phase[phase] = run(torch, args.seed)
         print(f"[time] phase [{phase}]: {time.perf_counter() - t0:.1f} s")

@@ -13,6 +13,10 @@ JAX nor the reference package.  Mapping:
   * a Linear ``{"w": (in, out), "b"}`` becomes ``weight`` (out, in) and
     ``bias`` (a stacked ``w`` of shape (N, in, out), as the "mlp" demux
     keeps it, becomes (N, out, in));
+  * an mLSTM layer's Linears sit under ``mlstm`` (``up``, ``wq``, ``wk``,
+    ``wv``, ``wi``, ``wf``, ``wo``, ``down``), an sLSTM layer's raw ``wx``,
+    ``wr`` and ``b`` under ``slstm``, its gated FFN's Linears under
+    ``slstm.ffn``;
   * every other leaf keeps its name and value (``embed.table``,
     ``mux.v``, ``demux.prefix_table``, norm ``scale``/``bias``, an MoE
     layer's expert stacks ``moe.up`` / ``moe.gate`` (E, d, f) and
@@ -34,7 +38,9 @@ A cache pytree has the same head / scanned blocks / tail split, with one
 dict of leaves per layer (``k``/``v``/``pos`` contiguous, or
 ``k_pages``/``v_pages``/``pos`` paged; an MLA layer's ``ckv``/``krope``/
 ``pos`` or ``ckv_pages``/``krope_pages``/``pos``; a Mamba layer's ``ssm``
-(float32) / ``conv``, contiguous in either layout); ``cache_from_jax``
+(float32) / ``conv``, an mLSTM layer's ``C`` / ``n`` / ``m`` and an sLSTM
+layer's ``c`` / ``n`` / ``m`` / ``h`` (float32), contiguous in either
+layout); ``cache_from_jax``
 splits it into one such dict of tensors per layer, in layer order.
 
 An optimizer state ``{"mu", "nu", "step"}`` holds trees of the params'
@@ -44,6 +50,11 @@ those, numpy having no bfloat16).
 
 ``decay_mask`` gives, per port tensor name, the reference AdamW's
 weight-decay decision, which it takes on its own tree layout.
+
+``image_params_from_jax`` maps the reference's image-model tree
+(``repro.models.image``: raw matrices and HWIO convolutions, the mux
+strategy's leaves under ``mux``) onto ``MuxMLP`` / ``MuxCNN``, every leaf
+under its own name and layout.
 """
 from __future__ import annotations
 
@@ -153,6 +164,15 @@ def cache_from_jax(np_cache: dict, cfg) -> list[dict[str, torch.Tensor]]:
     layers = _layers(np_cache["head"], np_cache["blocks"], np_cache["tail"],
                      cfg, "cache")
     return [{k: _tensor(v) for k, v in layer.items()} for layer in layers]
+
+
+def image_params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:
+    """Reference ``MuxMLP`` / ``MuxCNN`` param tree (numpy leaves) -> the
+    port's state_dict: ``w1``, ``c1``, ``readout``, ``mux.o``, ... keep
+    their names, shapes and values."""
+    out: dict[str, torch.Tensor] = {}
+    _flatten(np_params, "", out)
+    return out
 
 
 def _first_leaf(tree):

@@ -2,10 +2,11 @@
 
 ``MuxConfig`` and ``ServingConfig`` keep the reference's fields and
 defaults, so one set of values describes a run in both packages.
-``ModelConfig`` keeps the fields of the dense, MoE and hybrid families
-(MLA mixers included; Mamba mixers beside attention), the ones the port's
-backbone runs so far.  Strategy names are validated against the port's
-own registry (``repro_torch.core.strategies``).
+``ModelConfig`` keeps the fields of the dense, MoE, hybrid and ssm
+families (MLA mixers included; Mamba mixers beside attention; mLSTM and
+sLSTM mixers), the ones the port's backbone runs so far.  Strategy
+names are validated against the port's own registry
+(``repro_torch.core.strategies``).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.nn.attention import AttnConfig, MLAConfig
 from repro_torch.nn.moe import MoEConfig
-from repro_torch.nn.ssm import MambaConfig
+from repro_torch.nn.ssm import MambaConfig, XLSTMConfig
 
 DTYPES = {
     "float32": torch.float32,
@@ -149,16 +150,17 @@ class ServingConfig:
 
 
 # ---------------------------------------------------------------------------
-# Model config (dense, MoE and hybrid families)
+# Model config (dense, MoE, hybrid and ssm families)
 # ---------------------------------------------------------------------------
 
-FAMILIES = ("dense", "moe", "hybrid")  # the families the port runs so far
+FAMILIES = ("dense", "moe", "hybrid", "ssm")  # the families the port runs
+                                              # so far
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | hybrid
+    family: str                      # dense | moe | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -176,6 +178,9 @@ class ModelConfig:
     mamba: MambaConfig | None = None  # Mamba mixers (hybrid: beside attention)
     attn_every: int = 0              # hybrid: layer i is attention iff
     attn_offset: int = 0             # i % attn_every == attn_offset
+    xlstm: XLSTMConfig | None = None  # xLSTM mixers (ssm family)
+    slstm_every: int = 0             # layer i is sLSTM iff
+                                     # (i + 1) % slstm_every == 0
     norm: str = "rmsnorm"
     activation: str = "silu"
     gated_mlp: bool = True
@@ -193,8 +198,8 @@ class ModelConfig:
             raise ValueError(
                 f"the port runs the {', '.join(FAMILIES[:-1])} and "
                 f"{FAMILIES[-1]} families only so far, got family="
-                f"{self.family!r} (xLSTM and the ssm family: ROADMAP Queue "
-                f"A item 9c)")
+                f"{self.family!r} (cross-attention and the audio and vlm "
+                f"families: ROADMAP Queue A item 9d)")
         torch_dtype(self.dtype)
         torch_dtype(self.param_dtype)
         from repro_torch.core import strategies
@@ -252,10 +257,13 @@ class ModelConfig:
 
     def layer_kinds(self) -> list[dict]:
         """Static per-layer structure, by the reference's rules: each
-        layer's mixer is MLA when ``mla`` is set; with ``mamba`` set it is
-        Mamba, or, with ``attn_every``, attention iff ``i % attn_every ==
-        attn_offset`` and Mamba otherwise; else attention.  The mixer is
-        followed by an MLP when ``d_ff`` or ``moe`` is set; the MLP of
+        layer's mixer is MLA when ``mla`` is set; with ``xlstm`` set it is
+        sLSTM iff ``slstm_every`` and ``(i + 1) % slstm_every == 0``, and
+        mLSTM otherwise; else, with ``mamba`` set, it is Mamba, or, with
+        ``attn_every``, attention iff ``i % attn_every == attn_offset`` and
+        Mamba otherwise; else attention.  An attention, MLA or Mamba mixer
+        is followed by an MLP when ``d_ff`` or ``moe`` is set (an xLSTM
+        block carries its own projections and has none); the MLP of
         layer i is MoE iff ``moe`` is set, ``i >= moe_layer_start`` and
         ``(i - moe_layer_start) % moe_every == 0``, and dense otherwise;
         with a ``window``, an attention layer i is global (no window) iff
@@ -266,7 +274,10 @@ class ModelConfig:
             mixer = "attn"
             if self.mla is not None:
                 mixer = "mla"
-            if self.mamba is not None:
+            if self.xlstm is not None:
+                mixer = "slstm" if (self.slstm_every and (i + 1) %
+                                    self.slstm_every == 0) else "mlstm"
+            elif self.mamba is not None:
                 mixer = "attn" if (self.attn_every and i % self.attn_every
                                    == self.attn_offset) else "mamba"
             window = None
@@ -274,7 +285,7 @@ class ModelConfig:
                     self.global_every and (i + 1) % self.global_every == 0):
                 window = self.window
             mlp = None
-            if self.d_ff or self.moe:
+            if mixer in ("attn", "mla", "mamba") and (self.d_ff or self.moe):
                 mlp = "dense"
                 if (self.moe is not None and i >= self.moe_layer_start and
                         (i - self.moe_layer_start) % self.moe_every == 0):

@@ -5,7 +5,7 @@ The port registers the archs of the dense family: the paper's T-MUX
 layers) and nemotron-4-340b; of the MoE family, llama4-scout-17b-a16e
 and deepseek-v3-671b (MLA mixers); and of the hybrid family,
 jamba-1.5-large-398b (Mamba layers beside attention, MoE on every other
-layer).
+layer); and of the ssm family, xlstm-125m (mLSTM and sLSTM mixers).
 The smoke rules are the reference's
 (``repro.configs.registry.get_smoke_config``) for these archs.
 """
@@ -15,7 +15,8 @@ import dataclasses
 
 from repro_torch.configs import (deepseek_v3_671b, gemma3_4b, gemma_7b,
                                  jamba_1_5_large_398b, llama4_scout_17b_a16e,
-                                 nemotron_4_340b, qwen1_5_4b, tmux_12l_768h)
+                                 nemotron_4_340b, qwen1_5_4b, tmux_12l_768h,
+                                 xlstm_125m)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import MLAConfig
 
@@ -30,6 +31,7 @@ ARCHS: dict[str, ModelConfig] = {
     "tmux-12l-768h": tmux_12l_768h.CONFIG,
     "tmux-12l-384h": tmux_12l_768h.CONFIG_12L_384H,
     "tmux-4l-768h": tmux_12l_768h.CONFIG_4L_768H,
+    "xlstm-125m": xlstm_125m.CONFIG,
 }
 
 
@@ -55,7 +57,8 @@ def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
     keeps q rank 64, latent 32, nope 32, rope 16 and v 32 per head; a
     Mamba arch keeps its state, conv and expansion at d_model with scan
     chunks of 16, and a hybrid one an attention layer every 4th layer
-    (at most) from layer 1."""
+    (at most) from layer 1; an xLSTM arch keeps 4 heads at d_model, with
+    scan chunks of 16 and every 2nd layer sLSTM."""
     cfg = get_config(arch)
     d = min(cfg.d_model, 256)
     heads = 4
@@ -77,6 +80,10 @@ def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
         kw["mamba"] = dataclasses.replace(cfg.mamba, dim=d, chunk=16)
         kw["attn_every"] = min(cfg.attn_every, 4) if cfg.attn_every else 0
         kw["attn_offset"] = 1 if cfg.attn_every else 0
+    if cfg.xlstm is not None:
+        kw["xlstm"] = dataclasses.replace(cfg.xlstm, dim=d, n_heads=4,
+                                          chunk=16)
+        kw["slstm_every"] = 2
     return dataclasses.replace(
         cfg,
         **kw,

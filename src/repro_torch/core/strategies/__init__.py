@@ -2,6 +2,8 @@
 ``repro.core.strategies``).
 
   mux:   hadamard · ortho · lowrank · binary · identity   (paper Sec 3.1/A.5)
+         nonlinear                                        (paper A.11, conv)
+         rotation                                         (circular shift)
   demux: index_embed · mlp                                (paper Sec 3.2)
 
 A strategy's ``init`` builds an ``nn.Module`` holding its parameters; the
@@ -22,6 +24,8 @@ from repro_torch.core.strategies.registry import (get_demux, get_mux,
 # Importing the builtin modules registers them.
 from repro_torch.core.strategies import demux as _demux_builtins  # noqa: F401
 from repro_torch.core.strategies import linear as _linear_builtins  # noqa: F401
+from repro_torch.core.strategies import (  # noqa: F401
+    nonlinear as _nonlinear_builtins, rotation as _rotation_builtins)
 
 __all__ = [
     "MuxStrategy", "DemuxStrategy",

@@ -1,5 +1,6 @@
 """Multiplexed backbone — the port of ``repro.models.backbone`` for the
-dense, MoE and hybrid families (attention, MLA or Mamba mixers).
+dense, MoE, hybrid and ssm families (attention, MLA, Mamba, mLSTM or
+sLSTM mixers).
 
 DataMUX is integrated as in the reference: token embedding → prefix
 protocol → mux strategy → attention + MLP blocks → demux strategy →
@@ -21,24 +22,29 @@ from repro_torch.device import resolve_device
 from repro_torch.nn.attention import MLA, Attention, paged_eligible
 from repro_torch.nn.layers import MLP, Embedding, Linear, make_norm
 from repro_torch.nn.moe import MoE
-from repro_torch.nn.ssm import Mamba
+from repro_torch.nn.ssm import MLSTM, SLSTM, Mamba
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                dtype=None, page_pool=None) -> list[dict]:
     """One cache per layer (K/V for attention, latent rows for MLA, the
-    recurrent state for Mamba): contiguous, ``max_len`` rows per slot (a
-    windowed layer: its ring of ``min(window, max_len)`` rows); or, with
-    ``page_pool`` = (pool_pages, page_size), a page pool shared by every
-    slot (see ``serving/paging.py``) for each attention or MLA layer that
-    ``paged_eligible`` admits, the others keeping their contiguous caches.
-    A Mamba layer's state is O(1) per slot and stays contiguous whatever
+    recurrent state for Mamba, mLSTM and sLSTM): contiguous, ``max_len``
+    rows per slot (a windowed layer: its ring of ``min(window, max_len)``
+    rows); or, with ``page_pool`` = (pool_pages, page_size), a page pool
+    shared by every slot (see ``serving/paging.py``) for each attention or
+    MLA layer that ``paged_eligible`` admits, the others keeping their
+    contiguous caches.  A recurrent layer's state is O(1) per slot (an
+    xLSTM state float32 whatever ``dtype``) and stays contiguous whatever
     ``page_pool`` and ``max_len`` say."""
     dtype = dtype or cfg.compute_dtype
     caches = []
     for kind in cfg.layer_kinds():
         if kind["mixer"] == "mamba":
             caches.append(Mamba.init_cache(cfg.mamba, batch, dtype, device))
+            continue
+        if kind["mixer"] in ("mlstm", "slstm"):
+            mixer = MLSTM if kind["mixer"] == "mlstm" else SLSTM
+            caches.append(mixer.init_cache(cfg.xlstm, batch, device))
             continue
         paged = page_pool is not None and paged_eligible(kind["window"],
                                                          max_len)
@@ -59,20 +65,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
 
 
 class Block(nn.Module):
-    """Pre-norm attention (or MLA, or Mamba) + MLP (dense or MoE) residual
-    block.  An attention or MLA mixer is ``attn``; a Mamba mixer is
-    ``mamba`` (as in the reference's param tree), and ``attn`` is then
-    None."""
+    """Pre-norm attention (or MLA, Mamba, mLSTM or sLSTM) + MLP (dense or
+    MoE) residual block.  An attention or MLA mixer is ``attn``; a Mamba,
+    mLSTM or sLSTM mixer is ``mamba``, ``mlstm`` or ``slstm`` (as in the
+    reference's param tree), and ``attn`` is then None.  An xLSTM block
+    has no MLP."""
 
     def __init__(self, cfg: ModelConfig, kind: dict, *, generator, device,
                  dtype, use_flash: bool = False):
         super().__init__()
         norm = make_norm(cfg.norm)
         self.norm1 = norm(cfg.d_model, device=device, dtype=dtype)
-        self.attn = self.mamba = None
+        self.attn = self.mamba = self.mlstm = self.slstm = None
+        kw = dict(generator=generator, device=device, dtype=dtype)
         if kind["mixer"] == "mamba":
-            self.mamba = Mamba(cfg.mamba, generator=generator, device=device,
-                               dtype=dtype)
+            self.mamba = Mamba(cfg.mamba, **kw)
+        elif kind["mixer"] == "mlstm":
+            self.mlstm = MLSTM(cfg.xlstm, **kw)
+        elif kind["mixer"] == "slstm":
+            self.slstm = SLSTM(cfg.xlstm, **kw)
         elif kind["mixer"] == "mla":
             # MLA never goes through the flash kernel (as in the reference)
             self.attn = MLA(cfg.mla, generator=generator, device=device,
@@ -95,12 +106,13 @@ class Block(nn.Module):
 
     def with_attn_config(self, acfg) -> "Block":
         """This block's weights (shared) with its attention under ``acfg``;
-        an MLA or Mamba mixer, which no attention setting reaches, is
-        shared as it is."""
+        an MLA, Mamba or xLSTM mixer, which no attention setting reaches,
+        is shared as it is."""
         out = Block.__new__(Block)
         nn.Module.__init__(out)
         out.norm1, out.norm2 = self.norm1, self.norm2
         out.mlp, out.moe, out.mamba = self.mlp, self.moe, self.mamba
+        out.mlstm, out.slstm = self.mlstm, self.slstm
         out.attn = self.attn if self.attn is None or isinstance(
             self.attn, MLA) else self.attn.with_config(acfg)
         return out
@@ -111,8 +123,19 @@ class Block(nn.Module):
         for a dense block.  ``row_mask`` (B, L) marks the rows the MoE
         dispatch counts (None: all).  A Mamba mixer takes the cache and
         ``chunk_lens`` only: it has no positions, cache index or block
-        table."""
-        if self.mamba is not None:
+        table; an mLSTM or sLSTM mixer the cache only, and it refuses
+        ``chunk_lens`` as the reference does."""
+        xlstm = self.mlstm if self.mlstm is not None else self.slstm
+        if xlstm is not None:
+            if chunk_lens is not None:
+                mixer = "mlstm" if self.mlstm is not None else "slstm"
+                raise ValueError(
+                    f"chunked decode (serving.prefill_chunk > 1) is not "
+                    f"supported for {mixer!r} mixers — xLSTM state updates "
+                    f"have no row-masked form yet; set prefill_chunk=1 for "
+                    f"xLSTM archs")
+            out, cache = xlstm(self.norm1(x), cache=cache)
+        elif self.mamba is not None:
             out, cache = self.mamba(self.norm1(x), cache=cache,
                                     chunk_lens=chunk_lens)
         else:
@@ -136,7 +159,7 @@ class Backbone(nn.Module):
     ``use_flash`` routes each layer's cache-free causal attention through
     the flash kernel (``cfg.attn_config(use_flash=True)``); prefill and
     decode, which write a cache, bidirectional attention, windowed
-    (local) layers and MLA and Mamba layers are unaffected."""
+    (local) layers and MLA, Mamba and xLSTM layers are unaffected."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
                  use_flash: bool = False):

@@ -1,8 +1,10 @@
-"""Mamba (S6) — the port of ``repro.nn.ssm``'s ``MambaConfig`` and
-``Mamba`` (arXiv:2312.00752, as used in Jamba, arXiv:2403.19887).
+"""Mamba (S6) and xLSTM — the port of ``repro.nn.ssm``: ``MambaConfig``
+and ``Mamba`` (arXiv:2312.00752, as used in Jamba, arXiv:2403.19887);
+``XLSTMConfig``, ``MLSTM`` and ``SLSTM`` (arXiv:2405.04517).
 
-The reference's Mamba is plain ``jnp`` (it has no Pallas kernel), and so
-is this port's: plain PyTorch on every device.
+The reference's SSM layers are plain ``jnp`` (they have no Pallas
+kernel), and so are this port's: plain PyTorch on every device.  The
+xLSTM mixers are described at ``XLSTMConfig`` below.
 
 Modes, chosen by the arguments as in the reference:
 
@@ -38,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.nn import initializers
-from repro_torch.nn.layers import Linear, profiler_label
+from repro_torch.nn.layers import MLP, Linear, profiler_label
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,3 +239,192 @@ class Mamba(nn.Module):
         cache["ssm"].copy_(ssm)
         cache["conv"].copy_(conv)
         return self.out_proj(y), cache
+
+
+# ---------------------------------------------------------------------------
+# xLSTM — arXiv:2405.04517 (mLSTM: matrix memory; sLSTM: scalar memory)
+# ---------------------------------------------------------------------------
+#
+# Modes, as in the reference: with a cache and L == 1, one decode step from
+# the cached state; with a cache and L > 1, a prefill whose recurrence
+# starts from the zero state whatever the cache holds and whose final state
+# fills the cache; without a cache, the full sequence.  The recurrence is
+# stepwise, a Python loop over time like the reference's ``lax.scan``
+# (exponential gating keeps a running max m, which breaks associativity),
+# with float32 state.  Neither mixer has a row-gated (chunked decode)
+# form, as in the reference.  The given cache is written in place and
+# returned.
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    """The reference's ``XLSTMConfig``, field for field.  ``chunk`` is read
+    by nothing, there as here: both recurrences are stepwise."""
+    dim: int
+    n_heads: int = 4
+    proj_factor: float = 2.0  # mLSTM block up-projection
+    chunk: int = 64           # mLSTM scan chunk
+
+    @property
+    def d_inner(self) -> int:
+        return int(self.proj_factor * self.dim)
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_inner // self.n_heads
+
+
+def _xlstm_gates(logf, i_t, m):
+    """Stabilised exponential gates: (m_new, input gate, forget gate) from
+    log sigmoid(f), the input pre-activation and the running max."""
+    m_new = torch.maximum(logf + m, i_t)
+    return m_new, torch.exp(i_t - m_new), torch.exp(logf + m - m_new)
+
+
+class MLSTM(nn.Module):
+    """mLSTM block: up-projection to (u, z), the matrix-memory recurrence
+    over heads of ``head_dim``, the output gate and silu(z), the
+    down-projection.  Leaves keep the reference's names (``up``, ``wq``,
+    ``wk``, ``wv``, ``wi``, ``wf``, ``wo``, ``down``; ``wi``, ``wf`` and
+    ``wo`` with a bias).  State per head: C (hd, hd), n (hd), m ()."""
+
+    def __init__(self, cfg: XLSTMConfig, *, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        d, di, h = cfg.dim, cfg.d_inner, cfg.n_heads
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.up = Linear(d, 2 * di, **kw)
+        self.wq = Linear(di, di, **kw)
+        self.wk = Linear(di, di, **kw)
+        self.wv = Linear(di, di, **kw)
+        self.wi = Linear(di, h, bias=True, **kw)
+        self.wf = Linear(di, h, bias=True, **kw)
+        self.wo = Linear(di, di, bias=True, **kw)
+        self.down = Linear(di, d, **kw)
+
+    @staticmethod
+    def init_cache(cfg: XLSTMConfig, batch: int, device=None) -> dict:
+        h, hd = cfg.n_heads, cfg.head_dim
+        f32 = dict(dtype=torch.float32, device=device)
+        return {"C": torch.zeros((batch, h, hd, hd), **f32),
+                "n": torch.zeros((batch, h, hd), **f32),
+                "m": torch.full((batch, h), -1e30, **f32)}
+
+    def _qkvgates(self, u):
+        lead = u.shape[:-1]
+        h, hd = self.cfg.n_heads, self.cfg.head_dim
+        q = self.wq(u).reshape(*lead, h, hd)
+        k = self.wk(u).reshape(*lead, h, hd) / (hd ** 0.5)
+        v = self.wv(u).reshape(*lead, h, hd)
+        return (q, k, v, self.wi(u).float(), self.wf(u).float(),
+                torch.sigmoid(self.wo(u)))
+
+    @staticmethod
+    def _step(state, q, k, v, i_t, f_t):
+        """One step of the recurrence: q, k, v (B, h, hd), i_t, f_t (B, h)
+        -> (new state, h_t (B, h, hd) float32)."""
+        c, n, m = state
+        m_new, i_g, f_g = _xlstm_gates(F.logsigmoid(f_t), i_t, m)
+        c = f_g[..., None, None] * c + \
+            i_g[..., None, None] * (v[..., :, None] * k[..., None, :]).float()
+        n = f_g[..., None] * n + i_g[..., None] * k.float()
+        qf = q.float()
+        num = (c @ qf[..., None])[..., 0]                  # bhvk,bhk->bhv
+        den = torch.clamp_min((n * qf).sum(-1).abs(), 1.0)
+        return (c, n, m_new), num / den[..., None]
+
+    def forward(self, x, *, cache=None):
+        """x: (B, L, dim) -> (y, cache).  Under a profiler the call runs
+        inside the label ``mlstm``."""
+        with profiler_label("mlstm"):
+            b, length, _ = x.shape
+            decode = cache is not None and length == 1
+            u, z = self.up(x).chunk(2, dim=-1)
+            q, k, v, it, ft, o = self._qkvgates(u)
+            if decode:
+                state = (cache["C"], cache["n"], cache["m"])
+            else:                   # the full sequence, from the zero state
+                state = tuple(self.init_cache(self.cfg, b, x.device).values())
+            hs = []
+            for t in range(length):
+                state, h_t = self._step(state, q[:, t], k[:, t], v[:, t],
+                                        it[:, t], ft[:, t])
+                hs.append(h_t)
+            hseq = torch.stack(hs, dim=1).reshape(b, length, self.cfg.d_inner)
+            out = o * hseq.to(x.dtype) * F.silu(z)
+            if cache is not None:
+                for key, t in zip(("C", "n", "m"), state):
+                    cache[key].copy_(t)
+            return self.down(out), cache
+
+
+class SLSTM(nn.Module):
+    """sLSTM block: scalar-memory LSTM with exponential gating, then a
+    gated GeGLU FFN (``ffn``, width int(4·dim/3), tanh GELU) added to its
+    output.  Raw leaves as in the reference: ``wx`` (dim, 4·dim) for the
+    gates i, f, z, o, ``wr`` (h, hd, 4·hd) recurrent per head, ``b``
+    (4·dim).  The recurrent term is reshaped head-major to (B, 4·dim) and
+    added to the gate-major input term before the split into i, f, z, o,
+    as the reference does: with h heads, each gate's recurrent input comes
+    from one head's hidden state, not from a block-diagonal per-head
+    recurrence.  State per unit: c, n, m, h."""
+
+    def __init__(self, cfg: XLSTMConfig, *, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.dim, cfg.n_heads
+        hd = d // h
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.wx = nn.Parameter(initializers.normal((d, 4 * d), d ** -0.5,
+                                                   **kw))
+        self.wr = nn.Parameter(initializers.normal((h, hd, 4 * hd),
+                                                   hd ** -0.5, **kw))
+        self.b = nn.Parameter(torch.zeros(4 * d, device=device, dtype=dtype))
+        self.ffn = MLP(d, int(4 * d / 3), gated=True, activation="gelu",
+                       **kw)
+
+    @staticmethod
+    def init_cache(cfg: XLSTMConfig, batch: int, device=None) -> dict:
+        f32 = dict(dtype=torch.float32, device=device)
+        return {"c": torch.zeros((batch, cfg.dim), **f32),
+                "n": torch.zeros((batch, cfg.dim), **f32),
+                "m": torch.full((batch, cfg.dim), -1e30, **f32),
+                "h": torch.zeros((batch, cfg.dim), **f32)}
+
+    def _step(self, gx, state):
+        """One step from the input term ``gx`` (B, 4·dim) -> (new state,
+        h_t float32)."""
+        c, n, m, hprev = state
+        b = gx.shape[0]
+        h = self.cfg.n_heads
+        hp = hprev.to(gx.dtype).reshape(b, h, -1)
+        gr = torch.einsum("bhd,hdk->bhk", hp,
+                          self.wr.to(gx.dtype)).reshape(b, -1)
+        gi, gf, gz, go = (gx + gr).float().chunk(4, dim=-1)
+        m_new, i_g, f_g = _xlstm_gates(F.logsigmoid(gf), gi, m)
+        c = f_g * c + i_g * torch.tanh(gz)
+        n = f_g * n + i_g
+        h_new = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
+        return (c, n, m_new, h_new), h_new
+
+    def forward(self, x, *, cache=None):
+        """x: (B, L, dim) -> (y, cache).  Under a profiler the call runs
+        inside the label ``slstm``."""
+        with profiler_label("slstm"):
+            b, length, _ = x.shape
+            if cache is not None and length == 1:
+                state = (cache["c"], cache["n"], cache["m"], cache["h"])
+            else:                   # the full sequence, from the zero state
+                state = tuple(self.init_cache(self.cfg, b, x.device).values())
+            gx = x @ self.wx.to(x.dtype) + self.b.to(x.dtype)
+            hs = []
+            for t in range(length):
+                state, h_t = self._step(gx[:, t], state)
+                hs.append(h_t)
+            y = torch.stack(hs, dim=1).to(x.dtype)
+            if cache is not None:
+                for key, t in zip(("c", "n", "m", "h"), state):
+                    cache[key].copy_(t)
+            return y + self.ffn(y), cache

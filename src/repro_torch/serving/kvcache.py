@@ -5,7 +5,8 @@ Two halves:
 
   * ``KVSlotAllocator`` — owns the decode cache (one ``{"k", "v", "pos"}``
     dict per attention layer, ``{"ckv", "krope", "pos"}`` per MLA layer,
-    ``{"ssm", "conv"}`` per Mamba layer, slot axis first) for B backbone
+    ``{"ssm", "conv"}`` per Mamba layer, ``{"C", "n", "m"}`` per mLSTM and
+    ``{"c", "n", "m", "h"}`` per sLSTM layer, slot axis first) for B backbone
     slots, each shared by N mux lanes, and supports per-slot reset:
     ``reset_slots(mask)`` restores the masked slots to the primed template
     (prefix K/V for prefix-protocol demuxers, zeros otherwise) and leaves
@@ -39,13 +40,20 @@ def _layer_bytes(cfg: ModelConfig, kind: dict, batch: int,
                  rows: int) -> int:
     """Bytes of ``rows`` cache rows for ``batch`` slots (or pages) of one
     layer: K, V and pos of an attention layer; the latent, the rope key
-    and pos of an MLA layer.  A Mamba layer has no rows: its float32 state
-    and its conv history in the compute dtype, per slot."""
+    and pos of an MLA layer.  A recurrent layer has no rows: a Mamba
+    layer's float32 state and its conv history in the compute dtype, an
+    mLSTM layer's float32 C, n and m per head, an sLSTM layer's float32 c,
+    n, m and h, per slot."""
     by = _dtype_bytes(cfg.dtype)
     if kind["mixer"] == "mamba":
         c = cfg.mamba
         return (batch * c.d_inner * c.d_state * 4
                 + batch * (c.d_conv - 1) * c.d_inner * by)
+    if kind["mixer"] == "mlstm":
+        c = cfg.xlstm
+        return batch * c.n_heads * (c.head_dim ** 2 + c.head_dim + 1) * 4
+    if kind["mixer"] == "slstm":
+        return batch * 4 * cfg.d_model * 4
     if kind["mixer"] == "mla":
         return batch * rows * (cfg.mla.cache_width * by + 4)
     return batch * rows * (cfg.n_kv_heads * cfg.head_dim_ * 2 * by + 4)
@@ -63,13 +71,14 @@ def paged_cache_bytes(cfg: ModelConfig, batch: int, max_len: int, *,
     eligible attention or MLA layer holds a shared ``pool_pages``-page
     pool, trash page included (an MLA layer's pages hold latent rows); a
     windowed layer whose ring is shorter than ``max_len`` keeps its
-    per-slot ring, and a Mamba layer its per-slot state.  Pass
-    ``table.pages_in_use + 1`` as ``pool_pages`` to count the pages
+    per-slot ring, and a Mamba, mLSTM or sLSTM layer its per-slot state.
+    Pass ``table.pages_in_use + 1`` as ``pool_pages`` to count the pages
     actually allocated."""
     total = 0
     for kind in cfg.layer_kinds():
         window = kind["window"]
-        if kind["mixer"] != "mamba" and paged_eligible(window, max_len):
+        if kind["mixer"] in ("attn", "mla") and \
+                paged_eligible(window, max_len):
             total += _layer_bytes(cfg, kind, pool_pages, page_size)
         else:
             total += _layer_bytes(cfg, kind, batch,

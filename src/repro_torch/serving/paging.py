@@ -23,11 +23,13 @@ pages the position axis instead:
     (pos <- -1) when next allocated.
 
 Ineligible layers (a windowed layer whose ring is shorter than
-``max_len``, and every Mamba layer, whose recurrent state is O(1) per
-slot) keep their contiguous per-slot caches inside the paged cache: they
-are imported from the primed template, reset through the same masked
-restore as the contiguous allocator's, and their slot slice travels with a
-parked slot.
+``max_len``, and every Mamba, mLSTM or sLSTM layer, whose recurrent state
+is O(1) per slot) keep their contiguous per-slot caches inside the paged
+cache: they are imported from the primed template, reset through the same
+masked restore as the contiguous allocator's, and their slot slice travels
+with a parked slot.  A model with no pooled layer at all (xlstm-125m)
+keeps the page table, whose pages then hold no tensor: the counts (peak
+pages, slot resets) follow the reference's, and a page is 0 bytes.
 
 The reference updates the pool functionally and donates it; the port
 writes it in place, and the prefix chunks and ring templates it restores

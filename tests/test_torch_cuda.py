@@ -608,6 +608,16 @@ def test_jamba_smoke_paged_kernels_match_plain_path_on_card(cuda, chunk):
                                           chunk)
 
 
+@pytest.mark.cuda
+def test_xlstm_smoke_paged_kernels_match_plain_path_on_card(cuda):
+    """xlstm-125m's smoke config (f32: mLSTM, sLSTM, mLSTM, sLSTM) the
+    same way at prefill_chunk 1: no layer pooled (the page table holds no
+    tensor), the mux and decode-demux kernels against the contiguous plain
+    path, logits within 1e-4 x max(1, max|plain|) at every step; no paged
+    attention launch."""
+    _smoke_paged_kernels_match_plain_path(cuda, "xlstm-125m", 1)
+
+
 def _smoke_paged_kernels_match_plain_path(cuda, arch, chunk):
     import dataclasses
 
@@ -638,7 +648,7 @@ def _smoke_paged_kernels_match_plain_path(cuda, arch, chunk):
         engines.append((eng, alloc, primed))
     assert [any(key.endswith("_pages") for key in c)
             for c in engines[0][1].cache] == \
-        [k["window"] is None and k["mixer"] != "mamba"
+        [k["window"] is None and k["mixer"] in ("attn", "mla")
          for k in cfg.layer_kinds()]
     n = cfg.mux.n
     pos = engines[0][2].pos.cpu().numpy().copy()
@@ -915,5 +925,92 @@ def test_mamba_matches_the_cpu_and_repeats_on_card(cuda):
     assert not _build.LAUNCHES
     for w, a, b in zip(want, first, second):
         assert torch.equal(a, b)
+        assert (a.cpu() - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())
+
+
+def _xlstm_steps(device, mixer, seed=0):
+    """An f32 mLSTM or sLSTM (d 64, 4 heads) on ``device``, weights from
+    ``seed``: its outputs over a cache-free run of 21 positions, a prefill
+    of 5 into a fresh cache, two one-token steps, and the final states;
+    all on inputs made on the CPU."""
+    from repro_torch.nn.ssm import MLSTM, SLSTM, XLSTMConfig
+
+    cls = MLSTM if mixer == "mlstm" else SLSTM
+    cfg = XLSTMConfig(dim=64, n_heads=4)
+    model = cls(cfg, generator=torch.Generator().manual_seed(seed)).eval()
+    model.to(device)
+    g = torch.Generator().manual_seed(seed + 1)
+
+    def x(b, l):
+        return torch.randn((b, l, cfg.dim), generator=g).to(device)
+    outs = []
+    with torch.no_grad():
+        outs.append(model(x(3, 21))[0])
+        cache = cls.init_cache(cfg, 3, device)
+        outs.append(model(x(3, 5), cache=cache)[0])
+        for _ in range(2):
+            outs.append(model(x(3, 1), cache=cache)[0])
+        outs += list(cache.values())
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixer", ["mlstm", "slstm"])
+def test_xlstm_matches_the_cpu_and_repeats_on_card(cuda, mixer):
+    """The mLSTM and sLSTM modules in f32 on the card, in each mode (the
+    cache-free run, prefill, one-token decode) and their final states,
+    against the same weights and inputs on the CPU within 1e-4 x max(1,
+    max|CPU|), and bitwise the same on a second run.  They launch none of
+    the port's kernels."""
+    want = _xlstm_steps(torch.device("cpu"), mixer)
+    _build.LAUNCHES.clear()
+    first, second = _xlstm_steps(cuda, mixer), _xlstm_steps(cuda, mixer)
+    torch.cuda.synchronize()
+    assert not _build.LAUNCHES
+    for w, a, b in zip(want, first, second):
+        assert torch.equal(a, b)
+        assert (a.cpu() - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())
+
+
+IMAGE_STRATEGIES = ["identity", "ortho", "lowrank", "binary", "hadamard",
+                    "rotation", "nonlinear"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["MuxMLP", "MuxCNN"])
+@pytest.mark.parametrize("strategy", IMAGE_STRATEGIES)
+def test_image_models_match_the_cpu_on_card(cuda, model, strategy):
+    """``MuxMLP`` and ``MuxCNN`` at the paper's sizes (20x20, N 4) with
+    each strategy, f32: logits and the ``image_loss`` gradient of every
+    parameter on the card against the same weights on the CPU within 1e-4
+    x max(1, max|CPU|).  The mux launches no kernel (the image models mix
+    through the strategies' plain ``combine``)."""
+    from repro_torch.models import image
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = image.ImageMuxConfig(n=4, strategy=strategy)
+    cls = getattr(image, model)
+    g = torch.Generator().manual_seed(0)
+    imgs = torch.randn((8, 4, 20, 20), generator=g)
+    labels = torch.randint(0, 10, (8, 4), generator=g)
+    cpu = cls(cfg, seed=0, device="cpu")
+    card = cls(cfg, seed=0, device="cpu").to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    _build.LAUNCHES.clear()
+    out = []
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        logits = m(imgs.to(dev))
+        loss, _ = image.image_loss(logits, labels.to(dev))
+        grads = torch.autograd.grad(loss, list(m.parameters()),
+                                    allow_unused=True)   # a frozen mux
+        out.append([logits.detach(), loss.detach(),
+                    *(g for g in grads if g is not None)])
+    assert len(out[0]) == len(out[1])
+    torch.cuda.synchronize()
+    assert not _build.LAUNCHES
+    for w, a in zip(*out):
         assert (a.cpu() - w).abs().max().item() <= 1e-4 * max(
             1.0, w.abs().max().item())

@@ -35,6 +35,18 @@ from repro_torch.serving.scheduler import ContinuousScheduler, poisson_trace
 from repro_torch.training.trainer import TrainConfig, Trainer
 from torch_parity import as_torch, bridged, tokens
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: at these sizes torch's thread pool
+    only adds waiting, most of all when other test processes share the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCHS = ["gemma-7b", "gemma3-4b", "nemotron-4-340b"]
 MARGIN = 1e-3
 

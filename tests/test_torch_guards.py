@@ -95,9 +95,10 @@ def test_config_validation_uses_the_port_registry():
     with pytest.raises(ValueError, match="binary mux"):
         dataclasses.replace(torch_registry.get_smoke_config("qwen1.5-4b"),
                             mux=torch_base.MuxConfig(n=3, strategy="binary"))
-    with pytest.raises(ValueError, match="dense, moe and hybrid families"):
+    with pytest.raises(ValueError,
+                       match="dense, moe, hybrid and ssm families"):
         dataclasses.replace(torch_registry.get_smoke_config("qwen1.5-4b"),
-                            family="ssm")
+                            family="audio")
     with pytest.raises(ValueError, match="page_size"):
         torch_base.ServingConfig(page_size=0)
 

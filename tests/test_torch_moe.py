@@ -397,7 +397,7 @@ def test_moe_layer_rule_and_families():
         ["dense", "dense", "moe", "dense", "moe", "dense", "moe"]
     assert ours.layer_pattern() == theirs.layer_pattern()
     with pytest.raises(ValueError, match="item 9"):
-        dataclasses.replace(ours, family="ssm")
+        dataclasses.replace(ours, family="audio")
 
 
 @pytest.mark.parametrize("n", [1, 4])

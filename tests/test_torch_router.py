@@ -12,6 +12,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.models import Backbone as JaxBackbone
 from repro.serving.router import ReplicaRouter as JaxRouter
@@ -28,6 +29,18 @@ from repro_torch.serving.router import (LeastLoadedRouting, ReplicaRouter,
 from repro_torch.serving.scheduler import (ContinuousScheduler, Request,
                                            SchedulerStats, poisson_trace)
 from repro_torch.serving.telemetry import Tracer, trace_summary
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: at these sizes torch's thread pool
+    only adds waiting, most of all when other test processes share the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 RESULTS = Path(__file__).resolve().parents[1] / "results" / "bench"
 

@@ -16,7 +16,9 @@ ATOL = 1e-4
                                        ("ortho", "index_embed"),
                                        ("lowrank", "index_embed"),
                                        ("binary", "index_embed"),
-                                       ("identity", "index_embed")])
+                                       ("identity", "index_embed"),
+                                       ("rotation", "index_embed"),
+                                       ("nonlinear", "index_embed")])
 def test_strategies_match_jax(mux, demux):
     jcfg, tcfg = configs("tmux", 4, mux={"strategy": mux, "demux": demux,
                                          "prefix_pad": 3})
