@@ -140,19 +140,40 @@ Phases, any failure of which ends the run with a non-zero exit:
      ``Engine`` at prefill_chunk 4 refused; evaluated as in phase 10 (L
      512); the device time of the ``mlstm`` and ``slstm`` labels and the
      device launches per step printed;
- 14. the image models: ``MuxMLP`` and ``MuxCNN`` at the paper's sizes
+ 14. cross-attention with an encoder: ``whisper-base`` whole (6 encoder
+     and 6 decoder layers, d 512, every decoder layer cross-attending),
+     N=8, bf16 (random weights from --seed, every ``cross_gate`` set
+     nonzero from it: at the reference's initial 0 the sublayer adds
+     nothing), over a random (8, 1500, 512) mel-frame context, served
+     lock-step as the reference serves it (its prime cannot take the
+     context, so it has no continuous serving for these models):
+     ``Engine.generate`` of 8 x 8 streams, prompt 32, 16 tokens, with the
+     mux and both demux kernels; a plain ``with_config`` view replaying
+     its tokens gives every step's logits within LOGIT_TOL and the same
+     greedy picks where the margin is clear; the state's context K/V are
+     ``_cross_kv_bytes``; two contexts give different logits; then
+     evaluated as in phase 10 with the context in the batch (flash on the
+     decoder's causal layers only); profiles of a decode step, a prefill
+     and an eval step with the ``cross`` and ``encoder`` labels' device
+     time;
+ 15. ``llama-3.2-vision-11b`` whole (40 layers, d 4096, 32 heads over 8
+     KV heads, a gated cross sublayer on every 5th layer; 10.2 B
+     parameters, 20.4 GB of bf16) the same way over a random (8, 1600,
+     4096) patch context;
+ 16. the image models: ``MuxMLP`` and ``MuxCNN`` at the paper's sizes
      (20x20, hidden 100, groups 20 / 84, N 4) with every registered mux
      strategy that validates at d 400, on a batch of the synthetic
      digits: logits, ``image_loss`` and every gradient on the card against
      the same weights on the CPU in f32 within 1e-4 x max(1, max|CPU|).
 
 Phase 2 also holds the mux and both demux kernels at every shape phases
-8-13 launch them (d 768, 2560, 3072, 5120, 7168, 8192 and 18432), the paged
-kernel at gemma3-4b's chunked shape (64 rows x n_rep 2, hd 256),
-llama4-scout's (n_rep 5, hd 128, C 1 and 4) and jamba's (n_rep 8, C 1 and
-4) and flash attention at the five models' shapes in phases 9, 10 and 12
-against their plain versions.  Each phase's seconds are printed.  The
-mux and demux launches of phases 3-13 record their shapes, and the run
+8-15 launch them (d 512, 768, 2560, 3072, 4096, 5120, 7168, 8192 and
+18432), the paged kernel at gemma3-4b's chunked shape (64 rows x n_rep 2,
+hd 256), llama4-scout's (n_rep 5, hd 128, C 1 and 4) and jamba's (n_rep
+8, C 1 and 4) and flash attention at the seven models' shapes in phases
+9, 10, 12, 14 and 15 against their plain versions.  Each phase's seconds
+are printed.  The mux and demux launches of phases 3-15 record their
+shapes, and the run
 fails if one of them was not held in phase 2 (the launch plans are chosen
 from the shape).
 
@@ -366,7 +387,13 @@ def check_kernels(torch, gen):
             # f32): a decode step of 8 slots, the prime of the 8-token
             # prefix, the eval
             (8, 8, 1, 768, both), (8, 8, 8, 768, both),
-            (1, 8, 520, 768, both)):
+            (1, 8, 520, 768, both),
+            # whisper-base's [audio] and llama-3.2-vision-11b's [vlm]
+            # shapes (d 512 and 4096): the lock-step prefill of the
+            # 8-token prefix and a 32-token prompt, a decode step, the eval
+            (8, 8, 40, 512, bf16), (8, 8, 1, 512, bf16),
+            (1, 8, 520, 512, bf16), (8, 8, 40, 4096, bf16),
+            (8, 8, 1, 4096, bf16), (1, 8, 520, 4096, bf16)):
         x32, v32 = randn(b, n, l, d), randn(n, d)
         for dtype in dtypes:
             x, v = x32.to(dtype), v32.to(dtype)
@@ -428,7 +455,17 @@ def check_kernels(torch, gen):
                     # demux, the eval
                     ("decode_demux", 8, 8, 1, 768, 1536, both),
                     ("index_embed_demux", 8, 8, 1, 768, 1536, both),
-                    ("index_embed_demux", 1, 8, 512, 768, 1536, both))
+                    ("index_embed_demux", 1, 8, 512, 768, 1536, both),
+                    # whisper-base's [audio] (d 512, H 1024) and
+                    # llama-3.2-vision-11b's [vlm] (d 4096, H 8192)
+                    # shapes: the prefill's last row, a decode step, the
+                    # eval
+                    ("index_embed_demux", 8, 8, 1, 512, 1024, bf16),
+                    ("decode_demux", 8, 8, 1, 512, 1024, bf16),
+                    ("index_embed_demux", 1, 8, 512, 512, 1024, bf16),
+                    ("index_embed_demux", 8, 8, 1, 4096, 8192, bf16),
+                    ("decode_demux", 8, 8, 1, 4096, 8192, bf16),
+                    ("index_embed_demux", 1, 8, 512, 4096, 8192, bf16))
     for name, b, n, l, d, hid, dtypes in demux_shapes:
         h32, p32 = randn(b, l, d), randn(b, n, d)
         w1_32, b1_32 = randn(hid, 2 * d, scale=(2 * d) ** -0.5), \
@@ -830,7 +867,13 @@ def flash_cases(torch, gen):
                                  ("gemma-7b eval", (1, 520, 16, 256)),
                                  ("nemotron-4-340b eval", (1, 264, 96, 192)),
                                  ("llama4-scout eval", (1, 520, 40, 128)),
-                                 ("jamba eval", (1, 520, 64, 128))):
+                                 ("jamba eval", (1, 520, 64, 128)),
+                                 # the decoders' self-attention in
+                                 # [audio] and [vlm] (llama's 8 KV heads
+                                 # repeated to 32)
+                                 ("whisper-base eval", (1, 520, 8, 64)),
+                                 ("llama-3.2-vision eval",
+                                  (1, 520, 32, 128))):
         q, k, v = (randn(b, l, h, hd) for _ in range(3))
         cases.append((label, q, k, v, True, None))
     q = randn(1, 32, 2, 64)
@@ -1259,7 +1302,7 @@ def device_rows(events, steps: int) -> list[tuple[float, str]]:
                    and e.self_device_time_total > 0), reverse=True)
 
 
-MIXER_LABELS = ("mla", "mamba", "mlstm", "slstm")
+MIXER_LABELS = ("mla", "mamba", "mlstm", "slstm", "cross", "encoder")
 
 
 def device_launches(events, steps: int) -> float:
@@ -1274,10 +1317,10 @@ def device_launches(events, steps: int) -> float:
 def print_stages(events, steps: int, label: str) -> None:
     """Device ms per step of each profiler label of the MoE block
     (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
-    ``moe.shared``) and of the MLA, Mamba, mLSTM and sLSTM mixers
-    (``mla``, ``mamba``, ``mlstm``, ``slstm``): the kernels launched
-    inside the label; the mixers' also as a share of the device's busy
-    time."""
+    ``moe.shared``), of the MLA, Mamba, mLSTM and sLSTM mixers (``mla``,
+    ``mamba``, ``mlstm``, ``slstm``), of the cross-attention (``cross``)
+    and of the encoder stack (``encoder``): the kernels launched inside
+    the label; the mixers' also as a share of the device's busy time."""
     from torch.autograd import DeviceType
 
     stages = sorted((e.key, e.device_time_total / 1e3 / steps, e.count)
@@ -1374,13 +1417,14 @@ def decode_step_ms(torch, eng, state, first, steps: int = 8) -> float:
 
 
 def profile_decode(torch, eng, prompts, first, label: str, wall: float,
-                   steps: int = 8):
+                   steps: int = 8, context=None):
     """Where the device time of a decode step goes (torch.profiler: self
-    device time per kernel name) and the host's time per op; ``wall`` is
-    the unprofiled step time the idle share is taken against."""
+    device time per kernel name, and per profiler label) and the host's
+    time per op; ``wall`` is the unprofiled step time the idle share is
+    taken against; ``context`` goes to the prefill."""
     from torch.profiler import ProfilerActivity, profile
 
-    state = eng.prefill(prompts)[1]
+    state = eng.prefill(prompts, context=context)[1]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         decode_step_ms(torch, eng, state, first, steps)
@@ -1396,11 +1440,32 @@ def profile_decode(torch, eng, prompts, first, label: str, wall: float,
           f"{1 - busy / wall:.3f}")
     for t, key in rows[:8]:
         print(f"[profile]   {t:8.4f} ms  {key[:90]}")
+    print_stages(events, steps, label)
     host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count / steps,
                     e.key) for e in events), reverse=True)
     print(f"[profile] {label}: host time per step by op (self, profiled):")
     for t, count, key in host[:8]:
         print(f"[profile]   {t:8.4f} ms  x{count:5.0f}  {key[:80]}")
+
+
+def profile_prefill(torch, eng, prompts, context, label: str) -> None:
+    """Device time of one ``Engine.prefill`` over ``context`` (the context
+    encoded, then the prompt), with the profiler labels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.prefill(prompts, context=context)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(t for t, _ in device_rows(events, 1))
+    if not busy:
+        print(f"[profile] {label}: device time not measured (the profiler "
+              f"saw no device activity)")
+        return
+    print(f"[profile] {label}: device busy {busy:.3f} ms, "
+          f"{device_launches(events, 1):.0f} device launches")
+    print_stages(events, 1, label)
 
 
 # ---------------------------------------------------------------------------
@@ -2631,8 +2696,6 @@ def serve_and_eval(torch, seed: int, base, tag: str, describe,
     import gc
 
     from repro_torch.configs.base import ServingConfig
-    from repro_torch.core.retrieval import retrieval_index
-    from repro_torch.data import RetrievalTask, mux_batches
     from repro_torch.kernels import _build
     from repro_torch.models import Backbone
     from repro_torch.nn.moe import capacity
@@ -2640,7 +2703,6 @@ def serve_and_eval(torch, seed: int, base, tag: str, describe,
     from repro_torch.serving.kvcache import cache_nbytes, paged_cache_bytes
     from repro_torch.serving.scheduler import (ContinuousScheduler,
                                                poisson_trace)
-    from repro_torch.training.trainer import TrainConfig, Trainer
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2792,8 +2854,38 @@ def serve_and_eval(torch, seed: int, base, tag: str, describe,
         profile_scheduler(torch, scheduler(model, 1), trace, warm=8,
                           steps=4, label=f"{tag[1:-1]} scheduler step")
 
-    # Evaluation through flash and the mux and demux kernels against the
-    # plain view, the plain run replaying the kernel run's routing.
+    for name, count in eval_against_plain(
+            torch, seed, tag, base, kernels, model, plain, tape,
+            n_attn=n_attn, n_moe=n_moe, peaks=(init_peak, serve_peak),
+            profile=profile).items():
+        launches[name] = launches.get(name, 0) + count
+    tape.uninstall()
+    del model, plain, paged_plain
+    return launches
+
+
+def eval_against_plain(torch, seed: int, tag: str, base, kernels, model,
+                       plain, tape, *, n_attn: int, n_moe: int, peaks=(),
+                       profile: bool = True, context=None) -> dict:
+    """Evaluation half of ``serve_and_eval``: ``make_eval_step`` (1 group,
+    L 512, task lm with the retrieval auxiliary) through a ``use_flash``
+    view of ``model`` under ``kernels`` (flash on the ``n_attn`` causal
+    attention layers, the mux and demux kernels) against the ``plain``
+    view, the plain run replaying the kernel run's routing (``tape``):
+    logits within LOGIT_TOL, task and retrieval losses (and ``moe_aux``
+    with ``n_moe`` MoE layers) within EVAL_LOSS_TOL.  ``context``, when
+    given, is the batch's (1, Lc, context_dim) context.  Eval-step times
+    on and off in turns; peak memory (with ``peaks``, the phase's earlier
+    ones) under 70 GB; a profile of the step unless ``profile`` is
+    False.  Returns the kernel launches of one eval step and one
+    forward."""
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.core.retrieval import retrieval_index
+    from repro_torch.data import RetrievalTask, mux_batches
+    from repro_torch.kernels import _build
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    launches = {}
     seq_len = 512
     tcfg = TrainConfig(task="lm")
     flash = model.with_config(dataclasses.replace(
@@ -2803,6 +2895,8 @@ def serve_and_eval(torch, seed: int, base, tag: str, describe,
         mux_batches(RetrievalTask(vocab=base.vocab, seq_len=seq_len),
                     groups=1, n_mux=base.mux.n, steps=1,
                     seed=seed))).items()}
+    if context is not None:
+        batch_["context"] = context
     index = retrieval_index(torch.Generator(device="cuda").manual_seed(seed),
                             1, base.mux.n, seq_len)
     step = Trainer.make_eval_step(flash.cfg, tcfg)
@@ -2813,7 +2907,8 @@ def serve_and_eval(torch, seed: int, base, tag: str, describe,
     _build.LAUNCHES.clear()
     metrics = step(state, batch_, None, retr_index=index)
     with torch.inference_mode():
-        logits = flash(batch_["tokens"])["logits"]
+        logits = flash(batch_["tokens"],
+                       context=batch_.get("context"))["logits"]
     torch.cuda.synchronize()
     eval_launches = dict(_build.LAUNCHES)
     tape.finish(tag)
@@ -2831,7 +2926,8 @@ def serve_and_eval(torch, seed: int, base, tag: str, describe,
     tape.start("replay")
     plain_metrics = plain_step(pstate, batch_, None, retr_index=index)
     with torch.inference_mode():
-        plain_logits = plain(batch_["tokens"])["logits"]
+        plain_logits = plain(batch_["tokens"],
+                             context=batch_.get("context"))["logits"]
     torch.cuda.synchronize()
     tape.finish(f"{tag} eval")
     n = base.mux.n
@@ -2857,21 +2953,19 @@ def serve_and_eval(torch, seed: int, base, tag: str, describe,
     for label in ("flash + kernels", "plain") * 2:           # in turns
         fn, st = runs[label]
         walls[label].append(eval_step_ms(torch, fn, st, [batch_], [index]))
-    peak_gb = max(init_peak, serve_peak,
-                  torch.cuda.max_memory_allocated() / 1e9)
+    peak_gb = max(*peaks, torch.cuda.max_memory_allocated() / 1e9)
     print(f"{tag} eval step wall ms (in turns): "
           + ", ".join(f"{label} {[round(t, 3) for t in w]}"
                       for label, w in walls.items())
-          + f"; peak memory of the phase {peak_gb:.2f} GB (serving "
-          f"{serve_peak:.2f} GB)")
+          + f"; peak memory of the phase {peak_gb:.2f} GB (earlier in "
+          f"the phase {[round(p, 2) for p in peaks]} GB)")
     if not peak_gb < 70:
         raise SystemExit(f"{tag} FAIL: peak memory {peak_gb:.2f} GB")
     if profile:
         profile_eval(torch, step, state, batch_, index,
                      statistics.median(walls["flash + kernels"]),
                      label=f"{tag[1:-1]} eval step")
-    tape.uninstall()
-    del state, pstate, model, plain, paged_plain, flash
+    del state, pstate, flash
     return launches
 
 
@@ -3055,7 +3149,169 @@ def run_ssm(torch, seed: int):
 
 
 # ---------------------------------------------------------------------------
-# Phase 14: the image models
+# Phases 14 and 15: cross-attention in whisper-base and llama-3.2-vision-11b
+# ---------------------------------------------------------------------------
+
+def run_cross(torch, seed: int, arch: str, tag: str):
+    """``arch`` (whisper-base or llama-3.2-vision-11b) whole, at full width
+    and depth, N = 8, bf16, weights from ``seed`` and every ``cross_gate``
+    set to a nonzero value drawn from it (the reference starts them at 0,
+    where the cross sublayer adds nothing), over a random context of the
+    config's (context_len, context_dim) per slot.  The reference serves a
+    cross config lock-step only (its prime runs the demux prefix without
+    the context), and so does this phase: ``Engine.generate`` of B 8 x N 8
+    streams, prompt 32, 16 new tokens, with the mux, index-embed and
+    decode demux kernels on; a plain run over a ``with_config`` view
+    replays the kernel run's tokens (every step's logits within LOGIT_TOL,
+    greedy picks equal where the margin is clear); the context K/V the
+    state holds are ``_cross_kv_bytes``; two contexts give different
+    logits.  Then ``eval_against_plain`` with the context in the batch
+    (flash on the decoder's causal self-attention only: the encoder is
+    bidirectional and the cross-attention plain, as in the reference);
+    profiles of a decode step and an eval step with the device time of
+    the ``cross`` and ``encoder`` labels."""
+    import gc
+
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import Backbone
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kvcache import _cross_kv_bytes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch, prompt_len, steps = 8, 32, 16
+    base = get_config(arch, mux_n=8)
+    kernels = dataclasses.replace(
+        base, mux=dataclasses.replace(base.mux, use_kernel=True),
+        serving=ServingConfig(fuse_demux=True))
+    kinds = base.layer_kinds()
+    cross = [i for i, k in enumerate(kinds) if k["cross"]]
+    model = Backbone(kernels, seed=seed, device="cuda").eval()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    enc = base.encoder
+    print(f"{tag} {base.name}: d={base.d_model}, {base.n_layers} layers, "
+          f"{base.n_heads} heads over {base.n_kv_heads} KV heads of "
+          f"{base.head_dim_}, cross-attention on layers {cross} over a "
+          f"context of {base.context_len} x {base.context_dim}"
+          + (f", an encoder of {enc.n_layers} bidirectional layers (d "
+             f"{enc.d_model})" if enc is not None else "")
+          + f", vocab {base.vocab}, N={base.mux.n}, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.4f} B "
+          f"parameters ({weights / 1e9:.2f} GB in {base.dtype}; "
+          f"param_count {base.param_count() / 1e9:.4f} B); nothing cut")
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{tag} peak memory while the weights were drawn {init_peak:.2f} "
+          f"GB (float32 draws, then the cast)")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gates = 0.25 + 0.5 * torch.rand(len(cross), generator=gen,
+                                    device="cuda")
+    with torch.no_grad():
+        for i, g in zip(cross, gates):
+            model.layers[i].cross_gate.fill_(g)
+    print(f"{tag} cross gates set from the seed: "
+          f"{[round(g, 4) for g in gates.tolist()]}")
+    prompts = torch.randint(0, base.vocab, (batch, base.mux.n, prompt_len),
+                            generator=gen, device="cuda")
+    ctx, ctx2 = (torch.randn((batch, base.context_len, base.context_dim),
+                             generator=gen, device="cuda") for _ in range(2))
+    plain = model.with_config(dataclasses.replace(
+        base, serving=ServingConfig()))
+    max_len = prompt_len + steps + 1
+    eng = Engine(model, batch=batch, max_len=max_len)
+    peng = Engine(plain, batch=batch, max_len=max_len)
+
+    eng.generate(prompts, 2, context=ctx)           # warm-up
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, steps, context=ctx)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    streams = batch * base.mux.n
+    print(f"{tag} generate: {streams} streams x {steps} tokens in {dt:.4f} "
+          f"s = {streams * steps / dt:.1f} streams x tokens/s, encoding "
+          f"included ({base.dtype}, {torch.cuda.get_device_name(0)}); "
+          f"kernel launches {launches}")
+    want = {"hadamard_mux": steps + 1, "index_embed_demux": 1,
+            "decode_demux": steps}
+    if tuple(out.shape) != (batch, base.mux.n, steps + 1) or \
+            launches != want:
+        raise SystemExit(f"{tag} FAIL: output {tuple(out.shape)}, launches "
+                         f"{launches} (expected {want})")
+
+    # The plain path replays the kernel run's tokens, teacher-forced.
+    forced, pforced = [], []
+    for e, keep in ((eng, forced), (peng, pforced)):
+        logits, state = e.prefill(prompts, context=ctx)
+        keep.append(logits.clone())
+        for t in range(steps):
+            logits, state = e.step(state, out[..., t])
+            keep.append(logits.clone())
+    check_forced(f"{tag} generate", forced, pforced)
+    held = sum(t.numel() * t.element_size()
+               for kv in state.cross_kv.values() for t in kv.values())
+    want_bytes = _cross_kv_bytes(base, batch)
+    print(f"{tag} context K/V held by the serving state: {held} bytes "
+          f"({len(state.cross_kv)} layers, {held / batch / 1e6:.1f} MB a "
+          f"slot), _cross_kv_bytes {want_bytes}")
+    if held != want_bytes:
+        raise SystemExit(f"{tag} FAIL: the context K/V are not "
+                         f"_cross_kv_bytes")
+    first = {}
+    for name, c in (("context A", ctx), ("context B", ctx2)):
+        first[name] = peng.prefill(prompts, context=c)[0].float()
+    moved = (first["context A"] - first["context B"]).abs().max().item()
+    top = first["context A"].abs().max().item()
+    print(f"{tag} prefill logits over two contexts (plain path): max|diff| "
+          f"{moved:.4g} of max|logit| {top:.4g} ({moved / top:.4f})")
+    if not (moved > 0 and math.isfinite(moved)):
+        raise SystemExit(f"{tag} FAIL: the logits do not depend on the "
+                         f"context")
+    del forced, pforced, first, state
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    walls = {"kernels on": [], "kernels off": []}
+    engines = {"kernels on": eng, "kernels off": peng}
+    for label in ("kernels on", "kernels off") * 2:   # in turns
+        e = engines[label]
+        walls[label].append(decode_step_ms(
+            torch, e, e.prefill(prompts, context=ctx)[1], out[..., 0]))
+    print(f"{tag} decode step wall ms (in turns): "
+          + ", ".join(f"{label} {[round(t, 3) for t in w]}"
+                      for label, w in walls.items()))
+    profile_decode(torch, eng, prompts, out[..., 0],
+                   f"{tag[1:-1]} decode step",
+                   statistics.median(walls["kernels on"]), context=ctx)
+    profile_prefill(torch, eng, prompts, ctx, f"{tag[1:-1]} prefill")
+
+    tape = RoutingTape(tag)
+    tape.install()
+    n_attn = sum(k["mixer"] == "attn" for k in kinds)
+    for name, count in eval_against_plain(
+            torch, seed, tag, base, kernels, model, plain, tape,
+            n_attn=n_attn, n_moe=0, peaks=(init_peak, serve_peak),
+            context=ctx[:1]).items():
+        launches[name] = launches.get(name, 0) + count
+    tape.uninstall()
+    del model, plain, eng, peng
+    return launches
+
+
+def run_audio(torch, seed: int):
+    return run_cross(torch, seed, "whisper-base", "[audio]")
+
+
+def run_vlm(torch, seed: int):
+    return run_cross(torch, seed, "llama-3.2-vision-11b", "[vlm]")
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the image models
 # ---------------------------------------------------------------------------
 
 def run_image(torch, seed: int):
@@ -3169,7 +3425,8 @@ def main(argv=None) -> int:
                        ("train", run_train), ("window", run_window),
                        ("dense", run_dense), ("moe", run_moe),
                        ("mla", run_mla), ("hybrid", run_hybrid),
-                       ("ssm", run_ssm), ("image", run_image)):
+                       ("ssm", run_ssm), ("audio", run_audio),
+                       ("vlm", run_vlm), ("image", run_image)):
         t0 = time.perf_counter()
         by_phase[phase] = run(torch, args.seed)
         print(f"[time] phase [{phase}]: {time.perf_counter() - t0:.1f} s")

@@ -27,7 +27,12 @@ JAX nor the reference package.  Mapping:
     bias) and ``out_proj`` are Linears; ``conv_w`` (d_conv, d_inner),
     ``conv_b``, ``A_log`` (d_inner, d_state) and ``D`` keep their names and
     layouts); an MoE router ``{"w": (d, E)}`` is a Linear like any other
-    (``moe.router.weight`` (E, d)) and keeps its float32.
+    (``moe.router.weight`` (E, d)) and keeps its float32; a cross layer's
+    ``norm_x``, ``cross`` (``wq``, ``wk``, ``wv``, ``wo``) and its scalar
+    ``cross_gate`` (one entry of the scanned ``(groups,)`` array) keep
+    their names;
+  * an encoder stack ``{"layers": [...], "final_norm"}`` becomes
+    ``encoder.layers.{i}`` and ``encoder.final_norm``.
 
 A tied embedding stays tied: the reference then has no ``lm_head`` and
 neither does the state_dict.  A trainer's task head ``{"w": (d,
@@ -42,6 +47,9 @@ dict of leaves per layer (``k``/``v``/``pos`` contiguous, or
 layer's ``c`` / ``n`` / ``m`` / ``h`` (float32), contiguous in either
 layout); ``cache_from_jax``
 splits it into one such dict of tensors per layer, in layer order.
+``cross_kv_from_jax`` maps the context K/V of the reference's
+``encode_context`` ({"head": {i}, "blocks": {j}, "tail": {t}}, a scanned
+entry stacked over groups) onto the port's {layer index: {"k", "v"}}.
 
 An optimizer state ``{"mu", "nu", "step"}`` holds trees of the params'
 structure, so ``opt_state_from_jax`` maps its moments as params.  Leaves
@@ -123,6 +131,11 @@ def params_from_jax(np_params: dict, cfg) -> dict[str, torch.Tensor]:
             _flatten(np_params[name], name + ".", out)
     for i, layer in enumerate(layers):
         _flatten(layer, f"layers.{i}.", out)
+    if "encoder" in np_params:
+        enc = np_params["encoder"]
+        for i, layer in enumerate(enc["layers"]):
+            _flatten(layer, f"encoder.layers.{i}.", out)
+        _flatten(enc["final_norm"], "encoder.final_norm.", out)
     if "task_head" in np_params:
         out["task_head.w"] = _tensor(np_params["task_head"]["w"])
     return out
@@ -143,8 +156,9 @@ def decay_mask(cfg, params) -> dict[str, bool]:
     pattern (``cfg.layer_pattern()``) has its params stacked over groups,
     one axis more than the port's.  So a scanned layer's norm ``scale`` /
     ``bias`` and Linear ``bias`` are decayed, an unscanned layer's are not,
-    nor ``final_norm``'s; every other name keeps its ndim across the
-    bridge."""
+    nor ``final_norm``'s nor any ``cross_gate`` (a scalar, or a
+    ``(groups,)`` vector when scanned); the encoder's layers are never
+    scanned; every other name keeps its ndim across the bridge."""
     head, period, groups = cfg.layer_pattern()
     scanned = range(head, head + period * groups)
     out = {}
@@ -164,6 +178,22 @@ def cache_from_jax(np_cache: dict, cfg) -> list[dict[str, torch.Tensor]]:
     layers = _layers(np_cache["head"], np_cache["blocks"], np_cache["tail"],
                      cfg, "cache")
     return [{k: _tensor(v) for k, v in layer.items()} for layer in layers]
+
+
+def cross_kv_from_jax(np_kv: dict, cfg) -> dict[int, dict]:
+    """Reference context K/V ({"head": {i}, "blocks": {j}, "tail": {t}},
+    numpy leaves) -> the port's {layer index: {"k", "v"}} (CPU tensors):
+    layer ``head + g * period + j`` reads ``blocks[j][leaf][g]`` and tail
+    entry t is layer ``head + period * groups + t``."""
+    head, period, groups = cfg.layer_pattern()
+    out = dict(np_kv["head"])
+    for j, kv in np_kv["blocks"].items():
+        for g in range(groups):
+            out[head + g * period + j] = _index(kv, g)
+    for t, kv in np_kv["tail"].items():
+        out[head + period * groups + t] = kv
+    return {i: {k: _tensor(v) for k, v in out[i].items()}
+            for i in sorted(out)}
 
 
 def image_params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:

@@ -2,11 +2,11 @@
 
 ``MuxConfig`` and ``ServingConfig`` keep the reference's fields and
 defaults, so one set of values describes a run in both packages.
-``ModelConfig`` keeps the fields of the dense, MoE, hybrid and ssm
-families (MLA mixers included; Mamba mixers beside attention; mLSTM and
-sLSTM mixers), the ones the port's backbone runs so far.  Strategy
-names are validated against the port's own registry
-(``repro_torch.core.strategies``).
+``ModelConfig`` keeps the fields of the dense, MoE, hybrid, ssm, vlm and
+audio families (MLA mixers included; Mamba mixers beside attention;
+mLSTM and sLSTM mixers; cross-attention sublayers over a context and an
+encoder stack).  Strategy names are validated against the port's own
+registry (``repro_torch.core.strategies``).
 """
 from __future__ import annotations
 
@@ -150,17 +150,16 @@ class ServingConfig:
 
 
 # ---------------------------------------------------------------------------
-# Model config (dense, MoE, hybrid and ssm families)
+# Model config
 # ---------------------------------------------------------------------------
 
-FAMILIES = ("dense", "moe", "hybrid", "ssm")  # the families the port runs
-                                              # so far
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | hybrid | ssm
+    family: str                      # one of FAMILIES
     n_layers: int
     d_model: int
     n_heads: int
@@ -181,6 +180,11 @@ class ModelConfig:
     xlstm: XLSTMConfig | None = None  # xLSTM mixers (ssm family)
     slstm_every: int = 0             # layer i is sLSTM iff
                                      # (i + 1) % slstm_every == 0
+    cross_attn_every: int = 0        # layer i has a cross-attention
+                                     # sublayer iff i % cross_attn_every == 0
+    context_dim: int = 0             # width of the context embeddings
+    context_len: int = 0             # number of context embeddings
+    encoder: ModelConfig | None = None  # encoder stack run over the context
     norm: str = "rmsnorm"
     activation: str = "silu"
     gated_mlp: bool = True
@@ -195,11 +199,8 @@ class ModelConfig:
 
     def __post_init__(self):
         if self.family not in FAMILIES:
-            raise ValueError(
-                f"the port runs the {', '.join(FAMILIES[:-1])} and "
-                f"{FAMILIES[-1]} families only so far, got family="
-                f"{self.family!r} (cross-attention and the audio and vlm "
-                f"families: ROADMAP Queue A item 9d)")
+            raise ValueError(f"unknown model family {self.family!r}; the "
+                             f"port runs {', '.join(FAMILIES)}")
         torch_dtype(self.dtype)
         torch_dtype(self.param_dtype)
         from repro_torch.core import strategies
@@ -268,7 +269,9 @@ class ModelConfig:
         ``(i - moe_layer_start) % moe_every == 0``, and dense otherwise;
         with a ``window``, an attention layer i is global (no window) iff
         ``global_every`` and ``(i + 1) % global_every == 0``, and local
-        (``window``) otherwise."""
+        (``window``) otherwise; layer i has a cross-attention sublayer iff
+        ``cross_attn_every``, ``i % cross_attn_every == 0`` and
+        ``context_len > 0``."""
         kinds = []
         for i in range(self.n_layers):
             mixer = "attn"
@@ -290,7 +293,11 @@ class ModelConfig:
                 if (self.moe is not None and i >= self.moe_layer_start and
                         (i - self.moe_layer_start) % self.moe_every == 0):
                     mlp = "moe"
-            kinds.append(dict(mixer=mixer, mlp=mlp, window=window))
+            cross = bool(self.cross_attn_every and
+                         i % self.cross_attn_every == 0 and
+                         self.context_len > 0)
+            kinds.append(dict(mixer=mixer, mlp=mlp, window=window,
+                              cross=cross))
         return kinds
 
     def layer_pattern(self) -> tuple[int, int, int]:
@@ -321,6 +328,58 @@ class ModelConfig:
                             scanned == best_scanned and period < best[1]):
                         best = (head, period, groups)
         return best
+
+    def param_count(self) -> int:
+        """Approximate parameter count, the reference's arithmetic term
+        for term (an encoder counts its own vocab embedding, which the
+        encoder stack does not hold)."""
+        d, v = self.d_model, self.vocab
+        total = v * d  # embedding
+        if not self.tie_embeddings:
+            total += v * d
+        for k in self.layer_kinds():
+            if k["mixer"] == "attn":
+                hd = self.head_dim_
+                total += d * (self.n_heads + 2 * self.n_kv_heads) * hd \
+                    + self.n_heads * hd * d
+            elif k["mixer"] == "mla":
+                m = self.mla
+                total += (d * m.q_lora_rank +
+                          m.q_lora_rank * m.n_heads * m.qk_head_dim +
+                          d * (m.kv_lora_rank + m.qk_rope_head_dim) +
+                          m.kv_lora_rank * m.n_heads *
+                          (m.qk_nope_head_dim + m.v_head_dim) +
+                          m.n_heads * m.v_head_dim * d)
+            elif k["mixer"] == "mamba":
+                c = self.mamba
+                di = c.d_inner
+                total += d * 2 * di + c.d_conv * di + \
+                    di * (c.dt_rank_ + 2 * c.d_state) + c.dt_rank_ * di + \
+                    di * c.d_state + di + di * d
+            elif k["mixer"] == "mlstm":
+                c = self.xlstm
+                di = c.d_inner
+                total += d * 2 * di + 3 * di * di + 2 * di * c.n_heads + \
+                    di * di + di * d
+            elif k["mixer"] == "slstm":
+                total += 4 * d * d + 4 * d * d // self.xlstm.n_heads + \
+                    2 * d * int(4 * d / 3)
+            if k["cross"]:
+                hd = self.head_dim_
+                total += (d * self.n_heads * hd +
+                          2 * self.context_dim * self.n_kv_heads * hd +
+                          self.n_heads * hd * d)
+            if k["mlp"] == "dense":
+                mult = 3 if self.gated_mlp else 2
+                total += mult * d * self.d_ff
+            elif k["mlp"] == "moe":
+                m = self.moe
+                mult = 3 if m.gated else 2
+                total += m.n_experts * mult * d * m.moe_ff + d * m.n_experts
+                total += m.n_shared_experts * mult * d * m.moe_ff
+        if self.encoder is not None:
+            total += self.encoder.param_count()
+        return total
 
 
 def replace(cfg, **kw):

@@ -5,7 +5,10 @@ The port registers the archs of the dense family: the paper's T-MUX
 layers) and nemotron-4-340b; of the MoE family, llama4-scout-17b-a16e
 and deepseek-v3-671b (MLA mixers); and of the hybrid family,
 jamba-1.5-large-398b (Mamba layers beside attention, MoE on every other
-layer); and of the ssm family, xlstm-125m (mLSTM and sLSTM mixers).
+layer); of the ssm family, xlstm-125m (mLSTM and sLSTM mixers); of the
+vlm family, llama-3.2-vision-11b (gated cross-attention sublayers over
+patch embeddings); and of the audio family, whisper-base (an encoder
+stack over mel frames, cross-attended by every decoder layer).
 The smoke rules are the reference's
 (``repro.configs.registry.get_smoke_config``) for these archs.
 """
@@ -15,7 +18,8 @@ import dataclasses
 
 from repro_torch.configs import (deepseek_v3_671b, gemma3_4b, gemma_7b,
                                  jamba_1_5_large_398b, llama4_scout_17b_a16e,
-                                 nemotron_4_340b, qwen1_5_4b, tmux_12l_768h,
+                                 llama_3_2_vision_11b, nemotron_4_340b,
+                                 qwen1_5_4b, tmux_12l_768h, whisper_base,
                                  xlstm_125m)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import MLAConfig
@@ -25,12 +29,14 @@ ARCHS: dict[str, ModelConfig] = {
     "gemma-7b": gemma_7b.CONFIG,
     "gemma3-4b": gemma3_4b.CONFIG,
     "jamba-1.5-large-398b": jamba_1_5_large_398b.CONFIG,
+    "llama-3.2-vision-11b": llama_3_2_vision_11b.CONFIG,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
     "nemotron-4-340b": nemotron_4_340b.CONFIG,
     "qwen1.5-4b": qwen1_5_4b.CONFIG,
     "tmux-12l-768h": tmux_12l_768h.CONFIG,
     "tmux-12l-384h": tmux_12l_768h.CONFIG_12L_384H,
     "tmux-4l-768h": tmux_12l_768h.CONFIG_4L_768H,
+    "whisper-base": whisper_base.CONFIG,
     "xlstm-125m": xlstm_125m.CONFIG,
 }
 
@@ -84,6 +90,14 @@ def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
         kw["xlstm"] = dataclasses.replace(cfg.xlstm, dim=d, n_heads=4,
                                           chunk=16)
         kw["slstm_every"] = 2
+    if cfg.cross_attn_every:
+        kw.update(cross_attn_every=2, context_dim=d, context_len=24)
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(
+            cfg.encoder, n_layers=2, d_model=d, n_heads=heads,
+            n_kv_heads=heads, d_ff=2 * d, vocab=512, dtype="float32",
+            param_dtype="float32")
+        kw.update(context_dim=d, context_len=24)
     return dataclasses.replace(
         cfg,
         **kw,

@@ -1,13 +1,15 @@
 """Multiplexed backbone — the port of ``repro.models.backbone`` for the
-dense, MoE, hybrid and ssm families (attention, MLA, Mamba, mLSTM or
-sLSTM mixers).
+dense, MoE, hybrid, ssm, vlm and audio families (attention, MLA, Mamba,
+mLSTM or sLSTM mixers; gated cross-attention sublayers over a context,
+which an encoder stack may run over first).
 
 DataMUX is integrated as in the reference: token embedding → prefix
 protocol → mux strategy → attention + MLP blocks → demux strategy →
 per-instance logits.  Mux/demux schemes resolve by name from the port's
 strategy registry; ``cfg.mux.n == 1`` degrades to a plain LM.  Where the
 reference compiles its layers into a head / scanned / tail pattern, the
-port runs a plain loop over ``layers``.
+port runs a plain loop over ``layers``, and keys the context's
+cross-attention K/V (``encode_context``) by absolute layer index.
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.strategies import get_demux, get_mux
 from repro_torch.device import resolve_device
-from repro_torch.nn.attention import MLA, Attention, paged_eligible
-from repro_torch.nn.layers import MLP, Embedding, Linear, make_norm
+from repro_torch.nn.attention import (MLA, Attention, CrossAttention,
+                                      paged_eligible)
+from repro_torch.nn.layers import (MLP, Embedding, Linear, make_norm,
+                                   profiler_label)
 from repro_torch.nn.moe import MoE
 from repro_torch.nn.ssm import MLSTM, SLSTM, Mamba
 
@@ -69,7 +73,10 @@ class Block(nn.Module):
     MoE) residual block.  An attention or MLA mixer is ``attn``; a Mamba,
     mLSTM or sLSTM mixer is ``mamba``, ``mlstm`` or ``slstm`` (as in the
     reference's param tree), and ``attn`` is then None.  An xLSTM block
-    has no MLP."""
+    has no MLP.  A layer whose kind has ``cross`` adds, after the mixer,
+    ``tanh(cross_gate) * cross(norm_x(x), cross_kv)`` (the gate a scalar
+    that starts at 0, so a fresh layer adds nothing); the others have
+    ``cross`` None."""
 
     def __init__(self, cfg: ModelConfig, kind: dict, *, generator, device,
                  dtype, use_flash: bool = False):
@@ -93,6 +100,14 @@ class Block(nn.Module):
                                                   use_flash=use_flash),
                                   generator=generator, device=device,
                                   dtype=dtype)
+        self.norm_x = self.cross = self.cross_gate = None
+        if kind["cross"]:
+            self.norm_x = norm(cfg.d_model, device=device, dtype=dtype)
+            self.cross = CrossAttention(
+                cfg.attn_config(), kv_dim=cfg.context_dim or cfg.d_model,
+                **kw)
+            self.cross_gate = nn.Parameter(torch.zeros((), device=device,
+                                                       dtype=dtype))
         self.norm2 = self.mlp = self.moe = None
         if kind["mlp"] is not None:
             self.norm2 = norm(cfg.d_model, device=device, dtype=dtype)
@@ -106,11 +121,13 @@ class Block(nn.Module):
 
     def with_attn_config(self, acfg) -> "Block":
         """This block's weights (shared) with its attention under ``acfg``;
-        an MLA, Mamba or xLSTM mixer, which no attention setting reaches,
-        is shared as it is."""
+        an MLA, Mamba or xLSTM mixer and the cross sublayer, which no
+        attention setting reaches, are shared as they are."""
         out = Block.__new__(Block)
         nn.Module.__init__(out)
         out.norm1, out.norm2 = self.norm1, self.norm2
+        out.norm_x, out.cross = self.norm_x, self.cross
+        out.cross_gate = self.cross_gate
         out.mlp, out.moe, out.mamba = self.mlp, self.moe, self.mamba
         out.mlstm, out.slstm = self.mlstm, self.slstm
         out.attn = self.attn if self.attn is None or isinstance(
@@ -118,10 +135,13 @@ class Block(nn.Module):
         return out
 
     def forward(self, x, *, positions, cache=None, cache_index=None,
-                block_table=None, chunk_lens=None, row_mask=None):
+                block_table=None, chunk_lens=None, row_mask=None,
+                cross_kv=None):
         """-> (x, cache, aux): ``aux`` is the MoE load-balance loss, None
-        for a dense block.  ``row_mask`` (B, L) marks the rows the MoE
-        dispatch counts (None: all).  A Mamba mixer takes the cache and
+        for a dense block.  ``cross_kv`` is this layer's context K/V
+        (``CrossAttention.precompute_kv``), which a cross layer needs.
+        ``row_mask`` (B, L) marks the rows the MoE dispatch counts (None:
+        all).  A Mamba mixer takes the cache and
         ``chunk_lens`` only: it has no positions, cache index or block
         table; an mLSTM or sLSTM mixer the cache only, and it refuses
         ``chunk_lens`` as the reference does."""
@@ -144,6 +164,11 @@ class Block(nn.Module):
                                    block_table=block_table,
                                    chunk_lens=chunk_lens)
         x = x + out
+        if self.cross is not None:
+            if cross_kv is None:
+                raise ValueError("cross-attn layer needs context kv")
+            out = self.cross(self.norm_x(x), cross_kv)
+            x = x + torch.tanh(self.cross_gate.to(x.dtype)) * out
         aux = None
         if self.mlp is not None:
             x = x + self.mlp(self.norm2(x))
@@ -155,7 +180,9 @@ class Block(nn.Module):
 
 class Backbone(nn.Module):
     """Weights are drawn from ``seed`` with a ``torch.Generator`` on
-    ``device`` (the GPU unless the caller asks for another device).
+    ``device`` (the GPU unless the caller asks for another device).  A
+    config with an ``encoder`` gets ``encoder.layers`` and
+    ``encoder.final_norm``, in the encoder's param dtype.
     ``use_flash`` routes each layer's cache-free causal attention through
     the flash kernel (``cfg.attn_config(use_flash=True)``); prefill and
     decode, which write a cache, bidirectional attention, windowed
@@ -183,6 +210,16 @@ class Backbone(nn.Module):
         self.layers = nn.ModuleList(
             Block(cfg, kind, use_flash=use_flash, **kw)
             for kind in cfg.layer_kinds())
+        self.encoder = None
+        if cfg.encoder is not None:
+            # Bidirectional: never the flash path (causal attention only).
+            ecfg = cfg.encoder
+            ekw = dict(kw, dtype=ecfg.pdtype)
+            self.encoder = nn.Module()
+            self.encoder.layers = nn.ModuleList(
+                Block(ecfg, kind, **ekw) for kind in ecfg.layer_kinds())
+            self.encoder.final_norm = make_norm(ecfg.norm)(
+                ecfg.d_model, device=device, dtype=ecfg.pdtype)
 
     @property
     def device(self) -> torch.device:
@@ -214,6 +251,7 @@ class Backbone(nn.Module):
         out.use_flash = self.use_flash
         out.embed, out.final_norm = self.embed, self.final_norm
         out.lm_head, out.layers = self.lm_head, self.layers
+        out.encoder = self.encoder
         out.mux = out.demux = None
         if width > 1:
             out.mux = get_mux(cfg.mux.strategy).narrow(self.mux, cfg.mux,
@@ -246,6 +284,7 @@ class Backbone(nn.Module):
         out.use_flash = self.use_flash if use_flash is None else use_flash
         out.embed, out.final_norm = self.embed, self.final_norm
         out.lm_head, out.mux, out.demux = self.lm_head, self.mux, self.demux
+        out.encoder = self.encoder
         out.layers = nn.ModuleList(
             b.with_attn_config(cfg.attn_config(window=kind["window"],
                                                use_flash=out.use_flash))
@@ -262,17 +301,38 @@ class Backbone(nn.Module):
             return self.embed.attend(h)
         return self.lm_head(h)
 
+    def encode_context(self, context) -> dict:
+        """context (B, Lc, context_dim) -> {layer index: {"k", "v"}} for
+        each cross layer: the context cast to the compute dtype, through
+        the encoder stack (bidirectional, profiler label ``encoder``) when
+        the config has one, then each cross layer's K/V projections."""
+        ctx = context.to(self.cfg.compute_dtype)
+        if self.encoder is not None:
+            with profiler_label("encoder"):
+                x = ctx
+                pos = torch.arange(x.shape[1], dtype=torch.int32,
+                                   device=x.device).expand(x.shape[:2])
+                for layer in self.encoder.layers:
+                    x, _, _ = layer(x, positions=pos)
+                ctx = self.encoder.final_norm(x)
+        return {i: layer.cross.precompute_kv(ctx)
+                for i, layer in enumerate(self.layers)
+                if layer.cross is not None}
+
     def _run_blocks(self, x, *, positions, cache=None, cache_index=None,
-                    block_table=None, chunk_lens=None, row_mask=None):
+                    block_table=None, chunk_lens=None, row_mask=None,
+                    cross_kv=None):
         """-> (final-normed hidden, the MoE layers' aux losses summed in
         layer order as a float32 scalar)."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        cross_kv = cross_kv or {}
         for i, layer in enumerate(self.layers):
             x, _, aux = layer(x, positions=positions,
                               cache=None if cache is None else cache[i],
                               cache_index=cache_index,
                               block_table=block_table,
-                              chunk_lens=chunk_lens, row_mask=row_mask)
+                              chunk_lens=chunk_lens, row_mask=row_mask,
+                              cross_kv=cross_kv.get(i))
             if aux is not None:
                 aux_total = aux_total + aux
         return self.final_norm(x), aux_total
@@ -291,7 +351,8 @@ class Backbone(nn.Module):
 
     # -- full-sequence forward (train / prefill) ----------------------------------
 
-    def forward(self, tokens, *, cache=None, last_only: bool = False):
+    def forward(self, tokens, *, context=None, cross_kv=None, cache=None,
+                last_only: bool = False):
         """The reference's ``Backbone.apply`` (``nn.Module.apply`` is taken).
         tokens: (B, N, L) when mux active else (B, L).
 
@@ -303,8 +364,13 @@ class Backbone(nn.Module):
         prefill: the cache is filled in place, ready for ``decode_step``.
         ``last_only``: demux + logits for the final position only (serving
         prefill never needs the N-fold demuxed tensor).
+        ``context`` (B, Lc, context_dim) is encoded here
+        (``encode_context``) unless ``cross_kv`` gives it encoded already
+        (the serving engine encodes once per request).
         """
         mux = self.cfg.mux
+        if cross_kv is None and context is not None:
+            cross_kv = self.encode_context(context)
         if mux.active:
             demux_s = get_demux(mux.demux)
             b, n, _ = tokens.shape
@@ -322,7 +388,8 @@ class Backbone(nn.Module):
 
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device).expand(b, x.shape[1])
-        h, aux = self._run_blocks(x, positions=positions, cache=cache)
+        h, aux = self._run_blocks(x, positions=positions, cache=cache,
+                                  cross_kv=cross_kv)
 
         out = {"hidden": h, "index_embeds": None, "cache": cache,
                "aux": aux}
@@ -347,7 +414,8 @@ class Backbone(nn.Module):
     # -- single-token decode (serving) ---------------------------------------------
 
     def decode_step(self, tokens, cache, cache_index, *, index_embeds=None,
-                    lane_mask=None, block_table=None, chunk_lens=None):
+                    cross_kv=None, lane_mask=None, block_table=None,
+                    chunk_lens=None):
         """One decode step.
 
         tokens: (B, N) last generated token per stream when mux active,
@@ -356,7 +424,8 @@ class Backbone(nn.Module):
         slot at its own position).  lane_mask: optional (B, N) 0/1 —
         retired lanes contribute nothing to the mixed stream and their
         logits are zeroed.  block_table: (B, max_pages) int32 when the
-        cache is paged.  The cache is updated in place.
+        cache is paged.  ``cross_kv``: the context K/V of
+        ``encode_context``.  The cache is updated in place.
         Returns (logits, cache): logits (B, N, vocab) when mux active else
         (B, vocab).
 
@@ -375,8 +444,8 @@ class Backbone(nn.Module):
                 tokens, cache, ci,
                 torch.as_tensor(chunk_lens, dtype=torch.int32,
                                 device=self.device),
-                index_embeds=index_embeds, lane_mask=lane_mask,
-                block_table=block_table)
+                index_embeds=index_embeds, cross_kv=cross_kv,
+                lane_mask=lane_mask, block_table=block_table)
         if mux.active:
             b = tokens.shape[0]
             emb = self.embed_tokens(tokens[:, :, None])         # (B, N, 1, d)
@@ -398,7 +467,7 @@ class Backbone(nn.Module):
             row_mask = lane_mask.bool().any(dim=1)[:, None]      # (B, 1)
         h, _ = self._run_blocks(x, positions=positions, cache=cache,
                                 cache_index=ci, block_table=block_table,
-                                row_mask=row_mask)
+                                row_mask=row_mask, cross_kv=cross_kv)
 
         if mux.active:
             demuxed = self._demux_decode(h, index_embeds)
@@ -413,8 +482,8 @@ class Backbone(nn.Module):
         return logits, cache
 
     def _chunked_decode_step(self, tokens, cache, ci, chunk_lens, *,
-                             index_embeds=None, lane_mask=None,
-                             block_table=None):
+                             index_embeds=None, cross_kv=None,
+                             lane_mask=None, block_table=None):
         """Chunked-prefill decode step (see ``decode_step``): a (B, ., C)
         token chunk advances slot b by ``chunk_lens[b]`` positions."""
         mux = self.cfg.mux
@@ -441,7 +510,8 @@ class Backbone(nn.Module):
             row_mask = row_mask & lane_mask.bool().any(dim=1)
         h, _ = self._run_blocks(x, positions=positions, cache=cache,
                                 cache_index=ci, block_table=block_table,
-                                chunk_lens=chunk_lens, row_mask=row_mask)
+                                chunk_lens=chunk_lens, row_mask=row_mask,
+                                cross_kv=cross_kv)
 
         if mux.active:
             demuxed = self._demux_decode(h, index_embeds)

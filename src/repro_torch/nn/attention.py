@@ -1,6 +1,7 @@
-"""Multi-head attention (MHA / GQA / MQA) with RoPE and DeepSeek's
-Multi-head Latent Attention — the port of the reference's ``Attention`` and
-``MLA`` classes (``repro.nn.attention``).
+"""Multi-head attention (MHA / GQA / MQA) with RoPE, cross-attention over
+a precomputed context, and DeepSeek's Multi-head Latent Attention — the
+port of the reference's ``Attention``, ``CrossAttention`` and ``MLA``
+classes (``repro.nn.attention``).
 
 Modes, chosen by the arguments as in the reference:
 
@@ -467,6 +468,56 @@ class Attention(nn.Module):
         return dot_product_attention(
             q, _repeat_kv(k_att, n_rep), _repeat_kv(v_att, n_rep), mask,
             self.cfg.scale)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM image layers / enc-dec decoder)
+# ---------------------------------------------------------------------------
+
+class CrossAttention(nn.Module):
+    """Attention of x over context K/V computed once per request
+    (``precompute_kv``): no RoPE, no cache and no mask (every context row
+    is valid).  ``kv_dim`` is the context's width.  As in the reference
+    the softmax runs in float32 over ``cfg.scale``-scaled scores, query
+    head ``kv * n_rep + r`` reads KV head ``kv``, and the probabilities
+    are cast to V's dtype; it runs on the plain path (the reference's is
+    plain jnp), inside the profiler label ``cross``."""
+
+    def __init__(self, cfg: AttnConfig, *, kv_dim: int | None = None,
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        kv_dim = kv_dim or cfg.dim
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        self.wq = Linear(cfg.dim, qd, bias=cfg.qkv_bias, **kw)
+        self.wk = Linear(kv_dim, kvd, bias=cfg.qkv_bias, **kw)
+        self.wv = Linear(kv_dim, kvd, bias=cfg.qkv_bias, **kw)
+        self.wo = Linear(qd, cfg.dim, bias=False, **kw)
+
+    def precompute_kv(self, context) -> dict:
+        """context (B, Lc, kv_dim) -> {"k", "v": (B, Lc, KVH, hd)}."""
+        cfg = self.cfg
+        b, lc, _ = context.shape
+        with profiler_label("cross"):
+            return {"k": self.wk(context).reshape(b, lc, cfg.n_kv_heads,
+                                                  cfg.head_dim),
+                    "v": self.wv(context).reshape(b, lc, cfg.n_kv_heads,
+                                                  cfg.head_dim)}
+
+    def forward(self, x, kv: dict):
+        """x (B, L, dim) over ``kv`` from ``precompute_kv`` -> (B, L, dim)."""
+        cfg = self.cfg
+        b, l, _ = x.shape
+        with profiler_label("cross"):
+            q = self.wq(x).reshape(b, l, cfg.n_heads, cfg.head_dim)
+            n_rep = cfg.n_heads // cfg.n_kv_heads
+            mask = torch.ones((b, 1, l, kv["k"].shape[1]), dtype=torch.bool,
+                              device=x.device)
+            out = dot_product_attention(
+                q, _repeat_kv(kv["k"].to(q.dtype), n_rep),
+                _repeat_kv(kv["v"].to(q.dtype), n_rep), mask, cfg.scale)
+            return self.wo(out.reshape(b, l, cfg.n_heads * cfg.head_dim))
 
 
 # ---------------------------------------------------------------------------

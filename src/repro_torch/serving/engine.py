@@ -18,9 +18,14 @@ the reference donates the cache to its jitted step for the same effect —
 so the cache of a ``ServeState`` belongs to the state ``step`` returns:
 never step a stale state again.
 
-The engine serves the dense, MoE and hybrid families: attention and MLA
-layers write K/V or latent rows, Mamba layers advance an O(1) recurrent
-state (prefill runs the full scan, whose final state fills the cache).
+The engine serves every family the port runs: attention and MLA layers
+write K/V or latent rows, Mamba and xLSTM layers advance an O(1)
+recurrent state (prefill runs the full scan, whose final state fills the
+cache).  A cross-attention config takes a ``context``, which ``prefill``
+encodes once (``Backbone.encode_context``); its K/V ride in the state
+through every step.  As in the reference, ``prime`` encodes a context but
+runs the demux prefix without it, so continuous batching refuses a cross
+config with a prefix demux.
 Chunked prefill (``prefill_chunk > 1``) takes every one of them: attention
 and MLA caches mask their row writes and Mamba gates its recurrence per
 row; an xLSTM mixer, which has no row-gated state update, is refused.
@@ -50,6 +55,8 @@ class ServeState:
                                          # scalar (lock-step) or (B,)
     index_embeds: Optional[torch.Tensor]  # (B, N, d) for prefix-protocol
                                           # demux strategies, else None
+    cross_kv: Optional[dict] = None      # {layer: {"k", "v"}} of the
+                                         # context (cross configs)
 
 
 class Engine:
@@ -95,19 +102,30 @@ class Engine:
         serving_policies.resolve("admission", cfg.serving.policy, slo)
 
     @torch.inference_mode()
-    def prefill(self, prompts) -> tuple[torch.Tensor, ServeState]:
+    def prefill(self, prompts, context=None
+                ) -> tuple[torch.Tensor, ServeState]:
         """prompts: (B, N, Lp) muxed or (B, Lp).  Returns (last-token
-        logits, state)."""
+        logits, state).  ``context`` (B, Lc, context_dim) is encoded
+        exactly once here; its K/V serve the prefill and every step."""
         tokens = torch.as_tensor(prompts, device=self.device)
+        cross_kv = self._encode(context)
         cache = self.model.init_cache(self.batch, self.max_len)
-        out = self.model(tokens, cache=cache, last_only=True)
+        out = self.model(tokens, cross_kv=cross_kv, cache=cache,
+                         last_only=True)
         lp = tokens.shape[-1] + self.cfg.mux.prefix_len
         pos = torch.tensor(lp, dtype=torch.int32, device=self.device)
         return out["logits"][..., -1, :], ServeState(
-            cache=out["cache"], pos=pos, index_embeds=out["index_embeds"])
+            cache=out["cache"], pos=pos, index_embeds=out["index_embeds"],
+            cross_kv=cross_kv)
+
+    def _encode(self, context):
+        if context is None:
+            return None
+        return self.model.encode_context(
+            torch.as_tensor(context, device=self.device))
 
     @torch.inference_mode()
-    def prime(self, *, compact: bool = False) -> ServeState:
+    def prime(self, context=None, *, compact: bool = False) -> ServeState:
         """Prefix-primed state for continuous batching: the cache holds only
         the demux prefix's K/V (and a Mamba layer the state after the
         prefix), ``pos`` is a (B,) vector at ``prefix_len``.
@@ -121,8 +139,13 @@ class Engine:
         ``compact``: prime a prefix-sized cache (width ``prefix_len``, or 1
         without a prefix) instead of a ``max_len`` one; the prefix K/V are
         bitwise the same, and the paged allocator imports its prefix pages
-        from it without a dense (B, max_len) transient."""
+        from it without a dense (B, max_len) transient.
+
+        ``context`` is encoded into the state's ``cross_kv``, but the
+        prefix runs without it, as in the reference: a cross layer then
+        refuses the prefix."""
         cfg = self.cfg
+        cross_kv = self._encode(context)
         p = cfg.mux.prefix_len
         if cfg.mux.active and p:
             cache = self.model.init_cache(self.batch,
@@ -137,7 +160,8 @@ class Engine:
             index_embeds = None
         pos = torch.full((self.batch,), p, dtype=torch.int32,
                          device=self.device)
-        return ServeState(cache=cache, pos=pos, index_embeds=index_embeds)
+        return ServeState(cache=cache, pos=pos, index_embeds=index_embeds,
+                          cross_kv=cross_kv)
 
     def variant(self, width: int, batch: int) -> "Engine":
         """Width-class serving variant: an engine serving ``batch`` slots at
@@ -184,8 +208,9 @@ class Engine:
         t0 = time.perf_counter() if self.tracer.enabled else 0.0
         logits, cache = self.model.decode_step(
             torch.as_tensor(tokens, device=self.device), state.cache, pos,
-            index_embeds=state.index_embeds, lane_mask=lane_mask,
-            block_table=block_table, chunk_lens=chunk_lens)
+            index_embeds=state.index_embeds, cross_kv=state.cross_kv,
+            lane_mask=lane_mask, block_table=block_table,
+            chunk_lens=chunk_lens)
         if self.tracer.enabled:
             # Host wall-clock of the step's dispatch: the device runs
             # asynchronously and is not waited for here.
@@ -195,10 +220,11 @@ class Engine:
                                            pos=pos + advance)
 
     @torch.inference_mode()
-    def generate(self, prompts, steps: int):
-        """Greedy generation for all (B, N) streams at once.  Returns tokens
-        (B, N, steps + 1) or (B, steps + 1)."""
-        logits, state = self.prefill(prompts)
+    def generate(self, prompts, steps: int, *, context=None):
+        """Greedy generation for all (B, N) streams at once, over
+        ``context`` for a cross config.  Returns tokens (B, N, steps + 1)
+        or (B, steps + 1)."""
+        logits, state = self.prefill(prompts, context=context)
         toks = []
         last = logits.argmax(dim=-1)
         for _ in range(steps):

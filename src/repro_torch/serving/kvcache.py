@@ -12,7 +12,9 @@ Two halves:
     (prefix K/V for prefix-protocol demuxers, zeros otherwise) and leaves
     live slots bit-for-bit untouched.
   * ``cache_bytes`` / ``paged_cache_bytes`` and their per-stream forms —
-    analytic accounting of the bytes ``init_cache`` allocates.
+    analytic accounting of the bytes ``init_cache`` allocates, plus a
+    cross config's context K/V (``_cross_kv_bytes``), which the serving
+    state holds beside the cache.
 
 Where the reference donates the live cache into jitted updates, the port
 writes it in place.  A template or snapshot that aliased the live cache
@@ -59,10 +61,21 @@ def _layer_bytes(cfg: ModelConfig, kind: dict, batch: int,
     return batch * rows * (cfg.n_kv_heads * cfg.head_dim_ * 2 * by + 4)
 
 
+def _cross_kv_bytes(cfg: ModelConfig, batch: int) -> int:
+    """Bytes of the context K/V of ``batch`` slots: ``context_len`` rows of
+    K and V per cross layer, in the compute dtype."""
+    if not cfg.context_len:
+        return 0
+    n_cross = sum(1 for k in cfg.layer_kinds() if k["cross"])
+    return (batch * cfg.context_len * cfg.n_kv_heads * cfg.head_dim_
+            * 2 * _dtype_bytes(cfg.dtype) * n_cross)
+
+
 def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
-    """Total decode-cache bytes for ``batch`` backbone streams."""
+    """Total decode-cache bytes for ``batch`` backbone streams, the
+    context K/V included."""
     return sum(_layer_bytes(cfg, k, batch, cache_rows(k["window"], seq_len))
-               for k in cfg.layer_kinds())
+               for k in cfg.layer_kinds()) + _cross_kv_bytes(cfg, batch)
 
 
 def paged_cache_bytes(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -72,7 +85,8 @@ def paged_cache_bytes(cfg: ModelConfig, batch: int, max_len: int, *,
     pool, trash page included (an MLA layer's pages hold latent rows); a
     windowed layer whose ring is shorter than ``max_len`` keeps its
     per-slot ring, and a Mamba, mLSTM or sLSTM layer its per-slot state.
-    Pass ``table.pages_in_use + 1`` as ``pool_pages`` to count the pages
+    The context K/V of a cross config are per slot.  Pass
+    ``table.pages_in_use + 1`` as ``pool_pages`` to count the pages
     actually allocated."""
     total = 0
     for kind in cfg.layer_kinds():
@@ -83,7 +97,7 @@ def paged_cache_bytes(cfg: ModelConfig, batch: int, max_len: int, *,
         else:
             total += _layer_bytes(cfg, kind, batch,
                                   cache_rows(window, max_len))
-    return total
+    return total + _cross_kv_bytes(cfg, batch)
 
 
 def cache_bytes_per_stream(cfg: ModelConfig, seq_len: int) -> float:

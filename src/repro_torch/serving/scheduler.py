@@ -320,6 +320,9 @@ class WidthClass:
                             # width == cfg.mux.n and the class spans B)
     allocator: Any          # per-class KV/page allocator (local slot ids)
     index_embeds: Any       # primed demux-prefix hiddens at this width
+    cross_kv: Any           # the primed state's context K/V (None but for
+                            # a cross config, which the prime refuses
+                            # with a prefix demux, as in the reference)
     mux_active: bool
     prefix_len: int         # this width's demux-prefix length
     max_len: int            # engine.max_len of the variant
@@ -413,7 +416,7 @@ class ContinuousScheduler:
             self.classes.append(WidthClass(
                 index=i, width=w, start=start, n_slots=counts[i],
                 engine=veng, allocator=alloc,
-                index_embeds=primed.index_embeds,
+                index_embeds=primed.index_embeds, cross_kv=primed.cross_kv,
                 mux_active=veng.cfg.mux.active,
                 prefix_len=veng.cfg.mux.prefix_len, max_len=veng.max_len))
             start += counts[i]
@@ -422,6 +425,7 @@ class ContinuousScheduler:
         # and external probes (tests, benches) reach these directly.
         self.allocator = self.classes[0].allocator
         self.index_embeds = self.classes[0].index_embeds
+        self.cross_kv = self.classes[0].cross_kv
         # slot -> class index / class prefix length, for O(1) dispatch.
         self.cls_of = np.concatenate(
             [np.full(c.n_slots, c.index, np.int32) for c in self.classes])
@@ -1065,7 +1069,8 @@ class ContinuousScheduler:
                 block_table = c.allocator.block_table
             state = ServeState(cache=c.allocator.cache,
                                pos=self.pos[sl].copy(),
-                               index_embeds=c.index_embeds)
+                               index_embeds=c.index_embeds,
+                               cross_kv=c.cross_kv)
             toks = tokens[sl, :c.width] if c.mux_active \
                 else tokens[sl, 0]
             logits, state = c.engine.step(state, toks, lane_mask=cmask,
@@ -1139,7 +1144,8 @@ class ContinuousScheduler:
                 block_table = c.allocator.block_table
             state = ServeState(cache=c.allocator.cache,
                                pos=self.pos[sl].copy(),
-                               index_embeds=c.index_embeds)
+                               index_embeds=c.index_embeds,
+                               cross_kv=c.cross_kv)
             ctoks = tokens[sl, :c.width, :] if c.mux_active \
                 else tokens[sl, 0, :]
             logits, state = c.engine.step(state, ctoks,

@@ -106,10 +106,11 @@ class Trainer:
         """(total, metrics) of the paper's mixed objective, as the
         reference computes it.  ``rng`` is the ``torch.Generator`` the
         retrieval auxiliary draws its instance index from, unless
-        ``retr_index`` (B, L) gives that index."""
+        ``retr_index`` (B, L) gives that index.  A ``context`` in the batch
+        (B, Lc, context_dim) goes to the model's cross layers."""
         model = state["model"]
         tokens = batch["tokens"]
-        out = model(tokens)
+        out = model(tokens, context=batch.get("context"))
         mux = cfg.mux
 
         if tcfg.task == "lm":

@@ -684,6 +684,75 @@ def _smoke_paged_kernels_match_plain_path(cuda, arch, chunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b"])
+def test_cross_smoke_kernels_match_plain_path_on_card(cuda, arch):
+    """A cross-attention arch's smoke config (f32, N 2, cross sublayers on
+    layers 0 and 2 with nonzero gates; whisper's with its 2-layer
+    encoder), served lock-step over a context as the reference serves it:
+    ``Engine.generate`` with the mux, index-embed and decode demux kernels
+    (each launched as the steps say) against a plain ``with_config`` view
+    fed the same tokens, logits within 1e-4 x max(1, max|plain|) at every
+    step; then a flash view's forward over the context against the plain
+    one, flash launched once per decoder layer (never by the
+    bidirectional encoder or the cross-attention)."""
+    import dataclasses
+
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import Backbone
+    from repro_torch.serving.engine import Engine
+
+    b, steps = 2, 8
+    base = get_smoke_config(arch, mux_n=2)
+    cfg = dataclasses.replace(
+        base, mux=dataclasses.replace(base.mux, use_kernel=True),
+        serving=ServingConfig(fuse_demux=True))
+    model = Backbone(cfg, seed=0, device=cuda).eval()
+    with torch.no_grad():
+        for i, layer in enumerate(model.layers):
+            if layer.cross is not None:
+                layer.cross_gate.fill_(0.3 + 0.1 * i)
+    plain = model.with_config(dataclasses.replace(base,
+                                                  serving=ServingConfig()))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab, (b, 2, 6), generator=g,
+                            device=cuda)
+    ctx = torch.randn((b, cfg.context_len, cfg.context_dim), generator=g,
+                      device=cuda)
+
+    def close(got, want):
+        got, want = got.float(), want.float()
+        return (got - want).abs().max().item() <= 1e-4 * max(
+            1.0, want.abs().max().item())
+
+    _build.LAUNCHES.clear()
+    out = Engine(model, batch=b, max_len=16).generate(prompts, steps,
+                                                      context=ctx)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"hadamard_mux": steps + 1,
+                                     "index_embed_demux": 1,
+                                     "decode_demux": steps}
+    engines = [Engine(m, batch=b, max_len=16) for m in (model, plain)]
+    states = [e.prefill(prompts, context=ctx) for e in engines]
+    for t in range(steps):
+        assert close(states[0][0], states[1][0])
+        states = [e.step(st, out[..., t])
+                  for e, (_, st) in zip(engines, states)]
+    assert close(states[0][0], states[1][0])
+    flash = model.with_config(dataclasses.replace(cfg,
+                                                  serving=ServingConfig()),
+                              use_flash=True)
+    toks = torch.randint(0, cfg.vocab, (1, 2, 30), generator=g, device=cuda)
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        got = flash(toks, context=ctx[:1])["logits"]
+        want = plain(toks, context=ctx[:1])["logits"]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert close(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("top_k", [2, 8])
 def test_moe_is_bitwise_repeatable_on_card(cuda, dtype, top_k):

@@ -72,17 +72,23 @@ def test_default_device_is_the_gpu(monkeypatch):
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_the_reference(arch, smoke):
     """Every field the port keeps has the reference's value, for the full
-    configs and the smoke rules alike."""
+    configs and the smoke rules alike; a nested model config (an encoder)
+    is compared the same way, over the fields the port keeps."""
     pkg = "get_smoke_config" if smoke else "get_config"
     kw = {"mux_n": 3} if smoke else {}
     ours = getattr(torch_registry, pkg)(arch, **kw)
     theirs = getattr(jax_registry, pkg)(arch, **kw)
-    for f in dataclasses.fields(ours):
-        mine, ref = getattr(ours, f.name), getattr(theirs, f.name)
-        if dataclasses.is_dataclass(mine):
-            assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
-        else:
-            assert mine == ref, f.name
+
+    def same_fields(ours, theirs):
+        for f in dataclasses.fields(ours):
+            mine, ref = getattr(ours, f.name), getattr(theirs, f.name)
+            if isinstance(mine, torch_base.ModelConfig):
+                same_fields(mine, ref)
+            elif dataclasses.is_dataclass(mine):
+                assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+            else:
+                assert mine == ref, f.name
+    same_fields(ours, theirs)
     assert ours.head_dim_ == theirs.head_dim_
     assert ours.mux.prefix_len == theirs.mux.prefix_len
     assert [k["mlp"] for k in ours.layer_kinds()] == \
@@ -95,10 +101,9 @@ def test_config_validation_uses_the_port_registry():
     with pytest.raises(ValueError, match="binary mux"):
         dataclasses.replace(torch_registry.get_smoke_config("qwen1.5-4b"),
                             mux=torch_base.MuxConfig(n=3, strategy="binary"))
-    with pytest.raises(ValueError,
-                       match="dense, moe, hybrid and ssm families"):
+    with pytest.raises(ValueError, match="unknown model family 'speech'"):
         dataclasses.replace(torch_registry.get_smoke_config("qwen1.5-4b"),
-                            family="audio")
+                            family="speech")
     with pytest.raises(ValueError, match="page_size"):
         torch_base.ServingConfig(page_size=0)
 

@@ -388,10 +388,12 @@ def test_jamba_config_matches_reference(smoke):
 
 def test_the_ssm_family_is_refused_citing_item_9c():
     """The name is kept from when the ssm family was the next one to port;
-    the family still refused is audio, and the refusal cites item 9d."""
-    with pytest.raises(ValueError, match="item 9d"):
+    the port now runs every family of the reference, and refuses one it
+    does not know, naming the six it runs."""
+    with pytest.raises(ValueError, match="unknown model family 'speech'.*"
+                       "dense, moe, hybrid, ssm, vlm, audio"):
         dataclasses.replace(torch_registry.get_smoke_config(ARCH),
-                            family="audio")
+                            family="speech")
 
 
 @pytest.mark.parametrize("length", [1, 12, 37])

@@ -388,7 +388,7 @@ def test_llama4_config_matches_reference(smoke):
 
 def test_moe_layer_rule_and_families():
     """``moe_layer_start`` / ``moe_every`` place the MoE layers as the
-    reference does; a family the port does not run yet names item 9."""
+    reference does; a family the port does not know is refused."""
     kw = dict(n_layers=7, moe_layer_start=2, moe_every=2)
     ours = dataclasses.replace(torch_registry.get_smoke_config(ARCH), **kw)
     theirs = dataclasses.replace(jax_registry.get_smoke_config(ARCH), **kw)
@@ -396,8 +396,8 @@ def test_moe_layer_rule_and_families():
         [k["mlp"] for k in theirs.layer_kinds()] == \
         ["dense", "dense", "moe", "dense", "moe", "dense", "moe"]
     assert ours.layer_pattern() == theirs.layer_pattern()
-    with pytest.raises(ValueError, match="item 9"):
-        dataclasses.replace(ours, family="audio")
+    with pytest.raises(ValueError, match="unknown model family 'speech'"):
+        dataclasses.replace(ours, family="speech")
 
 
 @pytest.mark.parametrize("n", [1, 4])
