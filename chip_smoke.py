@@ -71,6 +71,19 @@ Phases, any failure of which ends the run with a non-zero exit:
      ``Backbone.with_config`` view with the mux and demux kernels against
      the plain path (losses within EVAL_LOSS_TOL, launches counted); and
      ``make_train_step`` refusing a kernel-on config;
+ 7b. the mesh: a world-1 ``nccl`` group and the (1, 1) mesh of
+     ``launch.mesh.make_test_mesh``: three train steps of tmux-12l-768h
+     at full width (bf16, the retrieval task, 8 x 40 x 128) through
+     ``make_train_step(mesh=)``, the state placed by
+     ``sharding.state_specs``, bitwise three plain steps (loss, every
+     parameter and moment), the rank's bytes of parameters and moments
+     equal to its specs' count; lock-step ``Engine.generate`` on the mesh
+     (B 8, N 40, prompt 64, 16 tokens) with the mux, demux and
+     decode-demux kernels bitwise the run without a mesh (tokens, prefill
+     and step logits), the kernels' launches counted; train and decode
+     step wall ms with and without the mesh, in turns; then
+     ``launch/train.py`` and ``launch/serve.py`` with ``--mesh-shape
+     1,1`` as subprocesses;
   8. the sliding window: ``gemma3-4b`` at full width and depth (34 layers:
      29 local with rings of 1024 rows, 5 global), N=8, bf16 (random weights
      from --seed), served by ``ContinuousScheduler`` on the paged pool
@@ -1873,6 +1886,182 @@ def check_train_on_card(torch, seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7b: the mesh at world 1
+# ---------------------------------------------------------------------------
+
+def run_mesh(torch, seed: int):
+    """tmux-12l-768h at full width on a world-1 ``nccl`` group and the
+    (1, 1) mesh of ``make_test_mesh``, where every collective is the
+    identity: (a) three train steps on the mesh bitwise three plain steps
+    (loss, every parameter and moment), the rank's bytes of parameters and
+    moments against its specs' count; (b) lock-step ``generate`` with the
+    mux and demux kernels on the mesh bitwise the same run without one
+    (tokens, prefill and step logits), counting the kernels' launches in
+    the mesh run; (c) both launchers on a 1,1 mesh as subprocesses.  The
+    wall ms of a train and a decode step with and without the mesh, in
+    turns."""
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import RetrievalTask, mux_batches
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import Backbone
+    from repro_torch.serving.engine import Engine
+    from repro_torch.sharding import mesh_info_from_mesh, state_specs
+    from repro_torch.sharding.placement import gather_state, state_bytes
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_test_mesh("cuda")
+    mi = mesh_info_from_mesh(mesh)
+    card = torch.cuda.get_device_name(0)
+    print(f"[mesh] world {dist.get_world_size()} ({dist.get_backend()}), "
+          f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    try:
+        # (a) the train step
+        groups, seq_len, steps = 8, 128, 3
+        cfg = get_config("tmux-12l-768h")
+        n = cfg.mux.n
+        tcfg = TrainConfig(task="retrieval", lr=3e-3, warmup=1,
+                           total_steps=10)
+        batches = [{k: torch.as_tensor(v).long().cuda()
+                    for k, v in b.items()}
+                   for b in mux_batches(RetrievalTask(vocab=cfg.vocab,
+                                                      seq_len=seq_len),
+                                        groups=groups, n_mux=n, steps=steps,
+                                        seed=seed)]
+        runs = {}
+        for label, kw in (("plain", {}),
+                          ("mesh", dict(mesh=mesh, mesh_info=mi))):
+            runs[label] = dict(
+                state=Trainer.init_state(cfg, tcfg, seed=seed,
+                                         device="cuda"),
+                step=Trainer.make_train_step(cfg, tcfg, **kw),
+                gen=torch.Generator(device="cuda").manual_seed(seed),
+                losses=[], walls=[])
+        for b in batches:                  # in turns: plain, mesh
+            for r in runs.values():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r["state"], m = r["step"](r["state"], b, r["gen"])
+                torch.cuda.synchronize()
+                r["walls"].append((time.perf_counter() - t0) * 1e3)
+                r["losses"].append(m["loss"])
+        plain, on_mesh = runs["plain"], runs["mesh"]
+        for label, r in runs.items():
+            print(f"[mesh] (a) {label} train steps: losses "
+                  f"{[float(x) for x in r['losses']]}, wall ms "
+                  f"{[round(w, 3) for w in r['walls']]}")
+        whole = gather_state(on_mesh["state"])
+        same = (all(torch.equal(a, b) for a, b in zip(plain["losses"],
+                                                      on_mesh["losses"]))
+                and all(torch.equal(p, q) for p, q in zip(
+                    Trainer.params(plain["state"]).values(),
+                    Trainer.params(on_mesh["state"]).values()))
+                and all(torch.equal(plain["state"]["opt_state"][m][k],
+                                    whole["opt_state"][m][k])
+                        for m in ("mu", "nu")
+                        for k in whole["opt_state"][m]))
+        held, want = state_bytes(on_mesh["state"],
+                                 state_specs(on_mesh["state"], mi), mi)
+        print(f"[mesh] (a) {steps} steps on the mesh bitwise the plain "
+              f"steps (loss, parameters, moments): {same}; the rank holds "
+              f"{held} B of parameters and moments, its specs give {want} "
+              f"B; train step wall ms (median) "
+              f"{statistics.median(on_mesh['walls']):.3f} on the mesh, "
+              f"{statistics.median(plain['walls']):.3f} without ({card})")
+        if not same or held != want:
+            raise SystemExit("[mesh] FAIL: the mesh train step differs "
+                             "from the plain step or its bytes from its "
+                             "specs")
+        del runs, plain, on_mesh, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) lock-step serving with the mux and demux kernels
+        batch, prompt_len, gen_steps = 8, 64, 16
+        base = get_config("tmux-12l-768h")
+        kcfg = dataclasses.replace(
+            base, mux=dataclasses.replace(base.mux, use_kernel=True),
+            serving=ServingConfig(fuse_demux=True))
+        model = Backbone(kcfg, seed=seed, device="cuda").eval()
+        engines = {"mesh": Engine(model, batch=batch,
+                                  max_len=prompt_len + gen_steps + 1,
+                                  mesh=mesh, mesh_info=mi),
+                   "plain": Engine(model, batch=batch,
+                                   max_len=prompt_len + gen_steps + 1)}
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        prompts = torch.randint(0, kcfg.vocab, (batch, n, prompt_len),
+                                generator=g, device="cuda")
+        for e in engines.values():
+            e.generate(prompts, 2)                 # warm-up
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        tokens = {"mesh": engines["mesh"].generate(prompts, gen_steps)}
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        tokens["plain"] = engines["plain"].generate(prompts, gen_steps)
+        logits = {}
+        for label, e in engines.items():
+            first, state = e.prefill(prompts)
+            logits[label] = (first, e.step(state, tokens[label][..., 0])[0])
+        same = (torch.equal(tokens["mesh"], tokens["plain"])
+                and all(torch.equal(a, b) for a, b in zip(logits["mesh"],
+                                                          logits["plain"])))
+        print(f"[mesh] (b) generate {batch} x {n} streams x {gen_steps} "
+              f"tokens with the mux and demux kernels, on the mesh bitwise "
+              f"without it (tokens, prefill and step logits): {same}; "
+              f"launches in the mesh run {launches}")
+        missing = [k for k in ("hadamard_mux", "index_embed_demux",
+                               "decode_demux") if not launches.get(k)]
+        if not same or missing:
+            raise SystemExit(f"[mesh] FAIL: mesh serving differs or never "
+                             f"launched {missing}")
+        walls = {label: [] for label in engines}
+        for label in ("mesh", "plain") * 3:
+            e = engines[label]
+            walls[label].append(decode_step_ms(
+                torch, e, e.prefill(prompts)[1], tokens[label][..., 0]))
+        print(f"[mesh] (b) decode step wall ms (in turns): "
+              + "; ".join(f"{label} {[round(w, 3) for w in ws]}"
+                          for label, ws in walls.items()) + f" ({card})")
+        del engines, model
+    finally:
+        dist.destroy_process_group()
+
+    # (c) the launchers, each its own process with a world-1 nccl group
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    for module, flags, want in (
+            ("repro_torch.launch.train",
+             ["--device-count", "1", "--arch", "tmux-12l-768h", "--smoke",
+              "--mux-n", "8", "--steps", "3", "--batch", "4", "--seq-len",
+              "32"], "done; final loss"),
+            ("repro_torch.launch.serve",
+             ["--arch", "tmux-12l-768h", "--smoke", "--mux-n", "8",
+              "--batch", "4", "--prompt-len", "16", "--gen", "8"],
+             "tok/s")):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", module, "--mesh-shape",
+                              "1,1", *flags], capture_output=True,
+                             text=True, timeout=300, env=env)
+        for line in out.stdout.splitlines():
+            print(f"[mesh] (c) {line}")
+        if out.returncode or want not in out.stdout:
+            print(out.stderr[-3000:])
+            raise SystemExit(f"[mesh] FAIL: {module} on a 1,1 mesh")
+        print(f"[mesh] (c) {module} --mesh-shape 1,1: "
+              f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the evaluation slice
 # ---------------------------------------------------------------------------
 
@@ -3422,7 +3611,8 @@ def main(argv=None) -> int:
     by_phase = {}
     for phase, run in (("slice", run_slice), ("paged", run_paged_slice),
                        ("eval", run_eval), ("router", run_router),
-                       ("train", run_train), ("window", run_window),
+                       ("train", run_train), ("mesh", run_mesh),
+                       ("window", run_window),
                        ("dense", run_dense), ("moe", run_moe),
                        ("mla", run_mla), ("hybrid", run_hybrid),
                        ("ssm", run_ssm), ("audio", run_audio),

@@ -56,6 +56,13 @@ structure, so ``opt_state_from_jax`` maps its moments as params.  Leaves
 may also be CPU tensors (``checkpoint.read_reference_checkpoint`` gives
 those, numpy having no bfloat16).
 
+``reference_paths`` inverts the param mapping: per port tensor name, the
+reference's key path (``head_layers/i/...``, ``blocks/j/...`` or
+``tail_layers/t/...``, ``w`` for ``weight`` and ``b`` for a Linear's
+``bias``), whether the reference stacks it over groups and whether its
+last two axes are swapped.  ``sharding.specs`` matches the reference's
+placement rules on those paths.
+
 ``decay_mask`` gives, per port tensor name, the reference AdamW's
 weight-decay decision, which it takes on its own tree layout.
 
@@ -138,6 +145,43 @@ def params_from_jax(np_params: dict, cfg) -> dict[str, torch.Tensor]:
         _flatten(enc["final_norm"], "encoder.final_norm.", out)
     if "task_head" in np_params:
         out["task_head.w"] = _tensor(np_params["task_head"]["w"])
+    return out
+
+
+def reference_paths(cfg, names) -> dict[str, tuple[str, bool, bool]]:
+    """Per port tensor name (``names``: the ``Trainer.params`` names, or any
+    iterable of ``params_from_jax`` names): (the reference's key path,
+    stacked, transposed), the inverse of ``params_from_jax``.  Layer ``i``
+    is ``head_layers/i`` below ``head``, ``blocks/j`` with ``j = (i -
+    head) % period`` over the scanned groups (stacked: the reference's leaf
+    has a leading (groups,) axis), else ``tail_layers/t``; a Linear's
+    ``weight`` is ``w`` with its last two axes swapped (a per-index demux
+    weight (N, out, in) too) and its ``bias`` is ``b``; every other part of
+    the name is a key of the path as it stands (``mlstm``, ``slstm.ffn``,
+    ``encoder.layers.i``, ``task_head.w``, a norm's ``bias``, ...)."""
+    head, period, groups = cfg.layer_pattern()
+    names = list(names)
+    linears = {n.rsplit(".", 1)[0] for n in names if n.endswith(".weight")}
+    out = {}
+    for name in names:
+        owner, leaf = name.rsplit(".", 1)
+        parts = name.split(".")
+        stacked = False
+        if parts[0] == "layers":
+            i = int(parts[1])
+            if i < head:
+                where = ["head_layers", str(i)]
+            elif i < head + period * groups:
+                where, stacked = ["blocks", str((i - head) % period)], True
+            else:
+                where = ["tail_layers", str(i - head - period * groups)]
+            parts = where + parts[2:]
+        transposed = leaf == "weight"
+        if transposed:
+            parts[-1] = "w"
+        elif leaf == "bias" and owner in linears:
+            parts[-1] = "b"
+        out[name] = ("/".join(parts), stacked, transposed)
     return out
 
 

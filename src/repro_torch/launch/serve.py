@@ -26,14 +26,28 @@ It takes the flags of ``repro.launch.serve`` (``--paged``, ``--page-size``,
 ``--policy``, ``--preempt``, ``--slo-mix``, ``--report``, ``--width-set``,
 ``--width-policy``, ``--max-preemptions``, ``--replicas``,
 ``--router-policy``, ``--router-sync``, ``--trace``, ``--metrics``,
-``--baseline``).  Multi-device meshes raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.  Two flags are the port's own:
-``--device`` (the GPU unless ``cpu`` is asked for) and ``--mux-kernel``
+``--baseline``).  Two flags are the port's own: ``--device`` (the GPU
+unless ``cpu`` is asked for) and ``--mux-kernel``
 (``MuxConfig.use_kernel``: the fused CUDA mux and demux).  Weights and
 prompts are random, drawn from ``--seed``.
+
+With ``--mesh-shape``, ``--device-count`` or ``--multi-pod`` it serves on a
+device mesh, one rank per device (``gloo`` ranks spawned on the CPU,
+``nccl`` on the card, or ``torchrun``'s), rank 0 printing:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen1.5-4b --smoke --device-count 4 --mesh-shape 2,2 \
+        --mux-n 2 --batch 2 --prompt-len 8 --gen 4
+
+Lock-step serving splits the slots over the data axis (``Engine(mesh=)``);
+the parameters are replicated.  The continuous scheduler, the paged pool
+and the router run every rank on all rows, which the launcher prints.
+Without ``--mesh-shape`` the mesh is the production (16, 16), which too
+few devices refuse.
 """
 import argparse
 import dataclasses
+import math
 import time
 
 
@@ -86,14 +100,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _unported(args) -> str:
-    """The first requested feature the port does not serve yet, or ''."""
-    if args.device_count > 1 or args.multi_pod or "," in args.mesh_shape:
-        return ("a multi-device mesh: distribution is ROADMAP Queue A "
-                "item 12")
-    return ""
-
-
 def _make_tracer(args):
     """A live ``Tracer`` when a telemetry sink is requested, else None (the
     scheduler then runs with its no-op default)."""
@@ -137,12 +143,12 @@ def _report_lines(stats) -> list:
     return lines
 
 
-def _run_lockstep(args, cfg, model):
+def _run_lockstep(args, cfg, model, **on_mesh):
     import torch
 
     from repro_torch.serving.engine import Engine
     eng = Engine(model, batch=args.batch,
-                 max_len=args.prompt_len + args.gen + 1)
+                 max_len=args.prompt_len + args.gen + 1, **on_mesh)
     n = max(cfg.mux.n, 1)
     pshape = (args.batch, n, args.prompt_len) if cfg.mux.active \
         else (args.batch, args.prompt_len)
@@ -160,9 +166,10 @@ def _run_lockstep(args, cfg, model):
     return out
 
 
-def _run_workload(args, cfg, model):
+def _run_workload(args, cfg, model, **on_mesh):
     """Replay a Poisson trace through the continuous scheduler; returns
-    (scheduler, stats)."""
+    (scheduler, stats).  ``on_mesh``: the engine's ``mesh`` and
+    ``mesh_info``."""
     import numpy as np
     import torch
 
@@ -174,7 +181,8 @@ def _run_workload(args, cfg, model):
     max_total = args.prompt_len * 2 + args.gen * 4 + 1
     tracer = _make_tracer(args)
     sched = ContinuousScheduler(
-        Engine(model, batch=args.batch, max_len=max_total), tracer=tracer)
+        Engine(model, batch=args.batch, max_len=max_total, **on_mesh),
+        tracer=tracer)
     trace = poisson_trace(
         args.num_requests, rate=args.rate, prompt_len=args.prompt_len,
         gen_len=args.gen, vocab=cfg.vocab, max_total=max_total,
@@ -289,15 +297,31 @@ def _run_router(args, cfg, model):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    missing = _unported(args)
-    if missing:
-        raise NotImplementedError(f"the PyTorch port does not serve {missing}")
     workload = args.workload == "poisson"
     if args.batch is None:
         args.batch = 2 if workload else 4
     if args.prompt_len is None:
         args.prompt_len = 4 if workload else 16
+    if args.device_count or args.mesh_shape or args.multi_pod:
+        from repro_torch.launch.mesh import mesh_plan, run_ranks
+        shape, _ = mesh_plan(args)
+        run_ranks(serve_on_mesh, args, world=math.prod(shape),
+                  device=args.device)
+        return None
 
+    cfg, model = _build(args, args.device)
+    print(f"[serve] {cfg.name} N={cfg.mux.n} on {model.device}"
+          + (" (mux kernel)" if args.mux_kernel else "")
+          + (", fuse_demux" if args.fuse_demux else ""))
+    if workload and args.replicas > 1:
+        return _run_router(args, cfg, model)
+    if workload:
+        return _run_workload(args, cfg, model)
+    return _run_lockstep(args, cfg, model)
+
+
+def _build(args, device):
+    """(config, model) of the flags: random weights from ``--seed``."""
     from repro_torch.configs.base import ServingConfig
     from repro_torch.configs.registry import get_config, get_smoke_config
     from repro_torch.models import Backbone
@@ -316,15 +340,33 @@ def main(argv=None):
             width_set=width_set, width_policy=args.width_policy,
             replicas=args.replicas, router_policy=args.router_policy,
             router_sync=args.router_sync))
-    model = Backbone(cfg, seed=args.seed, device=args.device).eval()
-    print(f"[serve] {cfg.name} N={cfg.mux.n} on {model.device}"
+    return cfg, Backbone(cfg, seed=args.seed, device=device).eval()
+
+
+def serve_on_mesh(args, device: str) -> None:
+    """One rank of a mesh run (``launch.mesh.run_ranks``)."""
+    from repro_torch.launch.mesh import make_mesh, mesh_plan
+    from repro_torch.sharding import mesh_info_from_mesh
+
+    shape, axes = mesh_plan(args)
+    mesh = make_mesh(shape, device, axes)
+    on_mesh = dict(mesh=mesh, mesh_info=mesh_info_from_mesh(mesh))
+    cfg, model = _build(args, device)
+    print(f"[serve] {cfg.name} N={cfg.mux.n} on mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} of "
+          f"{device.split(':')[0]}"
           + (" (mux kernel)" if args.mux_kernel else "")
           + (", fuse_demux" if args.fuse_demux else ""))
-    if workload and args.replicas > 1:
-        return _run_router(args, cfg, model)
-    if workload:
-        return _run_workload(args, cfg, model)
-    return _run_lockstep(args, cfg, model)
+    if args.workload == "poisson":
+        print("[serve] on a mesh the continuous scheduler, the paged pool "
+              "and the router run every rank on all rows (their slots are "
+              "not split across ranks)")
+        if args.replicas > 1:
+            _run_router(args, cfg, model)
+        else:
+            _run_workload(args, cfg, model, **on_mesh)
+    else:
+        _run_lockstep(args, cfg, model, **on_mesh)
 
 
 if __name__ == "__main__":

@@ -27,14 +27,17 @@
   ``record_function`` costs host time even with no profiler running.
 
 The shared expert runs on every row, masked or not, and is added after the
-routed output.  Expert parallelism over a mesh (the reference's
-``MeshInfo``, ``psum_scatter`` and ``ep2d``) is ROADMAP Queue A item 12:
-the config keeps those fields, and a mesh raises.
+routed output.  ``MeshInfo`` (the mesh's axes and sizes) is the
+reference's, field for field.  A one-device mesh runs the unsharded block,
+as the reference does; expert parallelism over a larger mesh (its
+``shard_map`` path, ``psum_scatter`` and ``ep2d``) is ROADMAP Queue A item
+12b: the config keeps those fields, and such a mesh raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -56,8 +59,58 @@ class MoEConfig:
     gated: bool = True
     router_scoring: str = "softmax"  # or "sigmoid" (DeepSeek-V3)
     aux_loss_coef: float = 0.001
-    psum_scatter: bool = False       # expert parallelism (item 12)
-    ep2d: bool = False               # expert parallelism (item 12)
+    psum_scatter: bool = False       # expert parallelism (item 12b)
+    ep2d: bool = False               # expert parallelism (item 12b)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshInfo:
+    """Static description of the active mesh for manual collectives."""
+    data_axis: str = "data"
+    model_axis: str = "model"
+    pod_axis: Optional[str] = None
+    data_size: int = 1
+    model_size: int = 1
+    pod_size: int = 1
+
+    @property
+    def batch_spec(self):
+        if self.pod_axis:
+            return (self.pod_axis, self.data_axis)
+        return (self.data_axis,)
+
+    def bl_entries(self, b: int, l: int):
+        """(batch_entry, seq_entry) PartitionSpec entries for a (B, L, ...)
+        activation: assign each batch-parallel mesh axis to the batch dim
+        when divisible, else to the sequence dim (context parallelism),
+        else replicate.  Keeps pjit/with_sharding_constraint legal for the
+        small-batch long-sequence shapes (e.g. prefill_32k B=4 on data=16)."""
+        bat, seq = [], []
+        for name, size in ((self.pod_axis, self.pod_size),
+                           (self.data_axis, self.data_size)):
+            if not name or size <= 1:
+                continue
+            if b % size == 0:
+                bat.append(name)
+                b //= size
+            elif l % size == 0:
+                seq.append(name)
+                l //= size
+        return (tuple(bat) or None, tuple(seq) or None)
+
+
+SINGLE = MeshInfo()
+
+
+def refuse_expert_parallel(cfg, mesh) -> None:
+    """A ``cfg`` model with MoE layers on a mesh of more than one device
+    raises: there the reference's numbers come from its expert-parallel
+    ``shard_map`` path (per-shard capacity and aux), ROADMAP item 12b."""
+    if mesh is not None and mesh.size() > 1 and any(
+            k["mlp"] == "moe" for k in cfg.layer_kinds()):
+        raise NotImplementedError(
+            f"{cfg.name} has MoE layers: expert parallelism over a mesh of "
+            f"more than one device is ROADMAP Queue A item 12b")
 
 
 def capacity(rows: int, cfg: MoEConfig) -> int:
@@ -146,11 +199,15 @@ class MoE(nn.Module):
         ``row_mask`` (B, L) bool marks valid rows (chunked serving decode:
         rows past a slot's ``chunk_lens`` or with no live lane are
         padding).  Masked rows take no capacity slot and no part in the aux
-        statistics, and their routed output is an exact zero."""
-        if mesh is not None:
+        statistics, and their routed output is an exact zero.
+
+        ``mesh`` (a ``DeviceMesh``) of one device runs the unsharded block,
+        where every collective of the reference's sharded path is the
+        identity; a larger mesh raises."""
+        if mesh is not None and mesh.size() > 1:
             raise NotImplementedError(
-                "expert parallelism over a mesh is ROADMAP Queue A item 12; "
-                "the port runs the unsharded block")
+                "expert parallelism over a mesh of more than one device is "
+                "ROADMAP Queue A item 12b; the port runs the unsharded block")
         b, l, d = x.shape
         out, aux = self._block(
             x.reshape(b * l, d),

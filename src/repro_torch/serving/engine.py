@@ -30,6 +30,19 @@ Chunked prefill (``prefill_chunk > 1``) takes every one of them: attention
 and MLA caches mask their row writes and Mamba gates its recurrence per
 row; an xLSTM mixer, which has no row-gated state update, is refused.
 
+On a mesh (``Engine(mesh=, mesh_info=)``), lock-step serving splits the
+slots: ``prefill`` keeps this rank's rows (``sharding.placement.batch_rows``
+over the axes ``MeshInfo.bl_entries`` gives the batch; another axis, and
+the model axis, run the same rows on every rank) of the prompts and the
+context, and their cache; ``step`` feeds that state this rank's rows of
+the tokens; both all-gather the logits, so every rank returns what one
+process returns.  The parameters are replicated, as the reference's
+launcher leaves them.  The continuous scheduler, the paged pool and the
+router build their states with ``prime``, which is not split: on a mesh
+every rank runs all their rows (splitting their slots across ranks is a
+later ROADMAP item).  MoE layers on a mesh of more than one device are
+refused (expert parallelism is ROADMAP item 12b).
+
 Engine methods run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
@@ -42,6 +55,8 @@ import torch
 
 from repro_torch.models import Backbone
 from repro_torch.nn.attention import cache_rows
+from repro_torch.nn.moe import (SINGLE, MeshInfo,
+                                 refuse_expert_parallel)
 from repro_torch.serving.telemetry import NULL_TRACER
 
 
@@ -57,15 +72,26 @@ class ServeState:
                                           # demux strategies, else None
     cross_kv: Optional[dict] = None      # {layer: {"k", "v"}} of the
                                          # context (cross configs)
+    rows: Optional[slice] = None         # the batch rows this rank holds
+                                         # (lock-step on a mesh), else all
 
 
 class Engine:
-    def __init__(self, model: Backbone, *, batch: int, max_len: int):
+    def __init__(self, model: Backbone, *, batch: int, max_len: int,
+                 mesh=None, mesh_info: MeshInfo = SINGLE):
+        refuse_expert_parallel(model.cfg, mesh)
         self.model = model
         self.cfg = model.cfg
         self.batch = batch
         self.max_len = max_len + self.cfg.mux.prefix_len
         self.device = model.device
+        self.mesh = mesh
+        self.mesh_info = mesh_info
+        self._rows, self._axes = slice(0, batch), ()
+        if mesh is not None:
+            from repro_torch.sharding.placement import batch_rows
+            self._rows, self._axes = batch_rows(mesh, mesh_info, batch,
+                                                self.max_len)
         # Telemetry recorder (serving/telemetry.py); the scheduler's
         # ``set_tracer`` rebinds it.
         self.tracer = NULL_TRACER
@@ -108,15 +134,26 @@ class Engine:
         logits, state).  ``context`` (B, Lc, context_dim) is encoded
         exactly once here; its K/V serve the prefill and every step."""
         tokens = torch.as_tensor(prompts, device=self.device)
+        rows = self._rows
+        if self.mesh is not None:
+            tokens = tokens[rows]
+            context = None if context is None else context[rows]
         cross_kv = self._encode(context)
-        cache = self.model.init_cache(self.batch, self.max_len)
+        cache = self.model.init_cache(rows.stop - rows.start, self.max_len)
         out = self.model(tokens, cross_kv=cross_kv, cache=cache,
                          last_only=True)
         lp = tokens.shape[-1] + self.cfg.mux.prefix_len
         pos = torch.tensor(lp, dtype=torch.int32, device=self.device)
-        return out["logits"][..., -1, :], ServeState(
+        return self._gather(out["logits"][..., -1, :]), ServeState(
             cache=out["cache"], pos=pos, index_embeds=out["index_embeds"],
-            cross_kv=cross_kv)
+            cross_kv=cross_kv, rows=rows if self.mesh is not None else None)
+
+    def _gather(self, logits):
+        """This rank's rows of the logits -> every row (on a mesh)."""
+        if not self._axes:
+            return logits
+        from repro_torch.sharding.placement import gather_rows
+        return gather_rows(logits, self.mesh, self._axes)
 
     def _encode(self, context):
         if context is None:
@@ -197,8 +234,13 @@ class Engine:
         trailing chunk axis (B, N, C) / (B, C), ``lane_mask`` is (B, N, C),
         and slot b advances ``chunk_lens[b]`` positions; logits come back
         per chunk row."""
+        tokens = torch.as_tensor(tokens, device=self.device)
         if lane_mask is not None:
             lane_mask = torch.as_tensor(lane_mask, device=self.device)
+        if state.rows is not None:
+            tokens = tokens[state.rows]
+            if lane_mask is not None:
+                lane_mask = lane_mask[state.rows]
         pos = torch.as_tensor(state.pos, dtype=torch.int32, device=self.device)
         advance = 1
         if chunk_lens is not None:
@@ -207,7 +249,7 @@ class Engine:
             advance = chunk_lens
         t0 = time.perf_counter() if self.tracer.enabled else 0.0
         logits, cache = self.model.decode_step(
-            torch.as_tensor(tokens, device=self.device), state.cache, pos,
+            tokens, state.cache, pos,
             index_embeds=state.index_embeds, cross_kv=state.cross_kv,
             lane_mask=lane_mask, block_table=block_table,
             chunk_lens=chunk_lens)
@@ -216,6 +258,8 @@ class Engine:
             # asynchronously and is not waited for here.
             self.tracer.event("engine_step",
                               wall_ms=(time.perf_counter() - t0) * 1e3)
+        if state.rows is not None:
+            logits = self._gather(logits)
         return logits, dataclasses.replace(state, cache=cache,
                                            pos=pos + advance)
 

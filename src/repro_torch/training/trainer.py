@@ -12,6 +12,18 @@ updates the parameters in place.  Like the reference, which cannot
 differentiate its Pallas kernels, it does not train through the CUDA
 kernels (none has a backward), and refuses a config or model that would
 send the forward through them.
+
+On a mesh (``make_train_step(mesh=, mesh_info=)``) the state is held as
+``sharding.state_specs`` places it (``sharding.placement.place_state``):
+"params" and the AdamW moments become DTensors, each rank holding its
+shard, and the model keeps the full parameters as the copy the forward
+runs on.  A step splits the batch rows over the axes
+``MeshInfo.bl_entries`` gives the batch, runs ``Trainer.grads`` on this
+rank's rows, averages loss, metrics and gradients over those axes, clips
+by the global norm (the same on every rank), applies AdamW to each rank's
+shard of the parameters and moments, and gathers the parameters back into
+the model: the numbers of one process, up to the order of the sums.
+Tensor-parallel matmuls and a per-layer gather are not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -25,6 +37,8 @@ from repro_torch.bridge import decay_mask
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import retrieval as retr
 from repro_torch.models import Backbone
+from repro_torch.nn.moe import (SINGLE, MeshInfo,
+                                 refuse_expert_parallel)
 from repro_torch.optim import AdamW, clip_by_global_norm
 from repro_torch.optim.schedule import linear_warmup_cosine
 from repro_torch.training import losses
@@ -202,14 +216,67 @@ class Trainer:
                                 for key, v in metric_sum.items()}, grads
 
     @staticmethod
-    def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+    def mesh_grads(state: dict, batch: dict, rng, cfg: ModelConfig,
+                   tcfg: TrainConfig, *, mesh, mesh_info: MeshInfo,
+                   retr_index=None):
+        """``Trainer.grads`` of the whole batch on ``mesh``: this rank's
+        rows (``placement.batch_rows``) through ``Trainer.grads``, then
+        loss, metrics and grads averaged over the batch axes, so every rank
+        holds the whole batch's.  The batch's microbatches (``tcfg``'s
+        b / k rows each) are this rank's rows, or hold them.  The retrieval
+        index is the whole batch's: ``retr_index`` as ``Trainer.grads``
+        takes it, or drawn from ``rng`` as one process draws it (k (b / k,
+        L) draws), this rank taking its rows."""
+        from repro_torch.sharding import placement
+        model = state["model"]
+        _refuse_flash(model)
+        batch = {key: _to_device(v, model.device)
+                 for key, v in batch.items()}
+        b, l = batch["tokens"].shape[0], batch["tokens"].shape[-1]
+        rows, axes = placement.batch_rows(mesh, mesh_info, b, l)
+        n_rows = rows.stop - rows.start
+        k = tcfg.microbatch if tcfg.microbatch and tcfg.microbatch > 1 else 1
+        if (n_rows * k) % b and b % (n_rows * k):
+            raise ValueError(f"microbatch={k} does not split the batch's "
+                             f"{b} rows into this rank's {n_rows}")
+        k_loc = max(1, n_rows * k // b)
+        mux = cfg.mux
+        index = None
+        if retr_index is not None:
+            index = torch.cat(list(retr_index)) if k > 1 else retr_index
+        elif mux.active and (tcfg.task == "retrieval"
+                             or mux.retrieval_alpha > 0.0):
+            index = torch.cat([retr.retrieval_index(rng, b // k, mux.n, l,
+                                                    device=model.device)
+                               for _ in range(k)])
+        if index is not None:
+            index = index[rows]
+            index = list(index.chunk(k_loc)) if k_loc > 1 else index
+        loss, metrics, grads = Trainer.grads(
+            state, {key: v[rows] for key, v in batch.items()}, rng, cfg,
+            dataclasses.replace(tcfg, microbatch=k_loc), retr_index=index)
+        names = list(metrics)
+        flat = placement.mean_over(
+            [loss, *metrics.values(), *grads.values()], mesh, axes)
+        return (flat[0], dict(zip(names, flat[1:1 + len(names)])),
+                dict(zip(grads, flat[1 + len(names):])))
+
+    @staticmethod
+    def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
+                        mesh_info: MeshInfo = SINGLE) -> Callable:
         """``train_step(state, batch, rng, *, retr_index=None) -> (state,
         metrics)``: ``Trainer.grads``, clipped by global norm, then one
         AdamW step with the reference's weight-decay mask
         (``bridge.decay_mask``), applied in place to
         ``Trainer.params(state)``; the first step adds "opt_state" and
         "step" to the state.  Metrics (0-d float32 tensors on the model's
-        device): loss, grad_norm, task_loss, retr_loss, moe_aux, acc."""
+        device): loss, grad_norm, task_loss, retr_loss, moe_aux, acc.
+
+        With ``mesh`` (a ``DeviceMesh``; ``mesh_info`` its ``MeshInfo``)
+        the first step also places the state on it, and each step runs
+        as the module docstring says; ``retr_index`` is the whole batch's.
+        A config with MoE layers on a mesh of more than one device is
+        refused: expert parallelism is ROADMAP item 12b."""
         if cfg.mux.use_kernel:
             raise ValueError(
                 "make_train_step: mux.use_kernel sends the forward through "
@@ -218,14 +285,12 @@ class Trainer:
                 "and evaluate the trained weights through "
                 "Backbone.with_config")
         opt = Trainer.make_optimizer(tcfg)
+        if mesh is not None:
+            return _mesh_train_step(cfg, tcfg, opt, mesh, mesh_info)
 
         def train_step(state, batch, rng, *, retr_index=None):
             model = state["model"]
-            if model.use_flash:
-                raise ValueError(
-                    "train_step: the model routes attention through the "
-                    "flash kernel (use_flash), which has no backward; "
-                    "train a model built without it")
+            _refuse_flash(model)
             batch = {key: _to_device(v, model.device)
                      for key, v in batch.items()}
             loss, metrics, grads = Trainer.grads(state, batch, rng, cfg, tcfg,
@@ -286,6 +351,69 @@ class Trainer:
                 if callback:
                     callback(i, m)
         return state, history
+
+
+def _refuse_flash(model) -> None:
+    if model.use_flash:
+        raise ValueError(
+            "train_step: the model routes attention through the flash "
+            "kernel (use_flash), which has no backward; train a model built "
+            "without it")
+
+
+def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, opt, mesh,
+                     mi: MeshInfo) -> Callable:
+    """The train step on ``mesh`` (``Trainer.make_train_step``)."""
+    from repro_torch.sharding import placement, state_specs
+    refuse_expert_parallel(cfg, mesh)
+
+    def train_step(state, batch, rng, *, retr_index=None):
+        if "params" not in state:
+            if "opt_state" not in state:
+                state["opt_state"] = opt.init(Trainer.params(state))
+                state["step"] = 0
+            placement.place_state(state, mesh, state_specs(state, mi))
+        loss, metrics, grads = Trainer.mesh_grads(
+            state, batch, rng, cfg, tcfg, mesh=mesh, mesh_info=mi,
+            retr_index=retr_index)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        _adamw_on_shards(opt, grads, state, decay_mask(cfg, grads), mesh)
+        state["step"] += 1
+        metrics.update(loss=loss, grad_norm=gnorm)
+        return state, metrics
+
+    return train_step
+
+
+@torch.no_grad()
+def _adamw_on_shards(opt, grads: dict, state: dict, decay: dict,
+                     mesh) -> None:
+    """One AdamW step on each rank's shard: every parameter is brought to
+    its moments' placement (a ZeRO-1 moment may be split further), updated
+    there with this rank's slice of the (whole, identical on every rank)
+    gradient, placed back at its own spec and gathered into the model.  A
+    parameter placed as its moments is updated in its own storage."""
+    from repro_torch.sharding.placement import local_slice
+    opt_state = state["opt_state"]
+    shard = {"mu": {}, "nu": {}, "step": opt_state["step"]}
+    params, local_grads, moment_placed = {}, {}, {}
+    for name, p in state["params"].items():
+        pls = opt_state["mu"][name].placements
+        if p.placements != pls:
+            moment_placed[name] = p.redistribute(mesh, pls)
+        params[name] = moment_placed.get(name, p).to_local()
+        local_grads[name] = local_slice(grads[name], mesh, pls)
+        for m in ("mu", "nu"):
+            shard[m][name] = opt_state[m][name].to_local()
+    opt.step_(local_grads, shard, params, decay)
+    opt_state["step"] = shard["step"]
+    compute = Trainer.params(state)
+    for name, p in state["params"].items():
+        if name in moment_placed:
+            p = state["params"][name] = moment_placed[name].redistribute(
+                mesh, p.placements)
+        whole = all(pl.is_replicate() for pl in p.placements)
+        compute[name].copy_(p.to_local() if whole else p.full_tensor())
 
 
 def _to_device(a, device) -> torch.Tensor:

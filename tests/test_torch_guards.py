@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port: it imports neither JAX nor the JAX
 package, it runs on the GPU unless asked for the CPU, its configs follow
-the reference's rules, its launcher serves the continuous modes and refuses
-what it does not serve yet, and its weight bridge covers every parameter."""
+the reference's rules, its launcher serves the continuous modes and a mesh
+and refuses what it does not serve, and its weight bridge covers every
+parameter."""
 import ast
 import dataclasses
 import os
@@ -110,9 +111,22 @@ def test_config_validation_uses_the_port_registry():
 
 @pytest.mark.parametrize("flags", [["--mesh-shape", "2,2"],
                                    ["--device-count", "2"]])
-def test_serve_refuses_what_it_does_not_serve(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--smoke", "--device", "cpu", *flags])
+def test_serve_refuses_what_it_does_not_serve(flags, capfd):
+    """A (2, 2) mesh serves on four spawned ``gloo`` ranks; two devices
+    without a mesh shape are too few for the production mesh, as in the
+    reference."""
+    argv = ["--smoke", "--device", "cpu", "--mux-n", "2", "--batch", "2",
+            "--prompt-len", "3", "--gen", "2", *flags]
+    if "--mesh-shape" in flags:
+        assert serve.main(argv) is None
+        out = capfd.readouterr().out
+        assert "on mesh {'data': 2, 'model': 2}" in out
+        assert "4 streams x 2 tokens" in out
+    else:
+        with pytest.raises(RuntimeError,
+                           match=r"mesh \(16, 16\) needs 256 devices, "
+                                 r"have 2"):
+            serve.main(argv)
 
 
 @pytest.mark.parametrize("flags", [

@@ -199,14 +199,19 @@ def test_capacity_is_the_references_arithmetic():
 
 
 def test_config_fields_match_the_references():
-    """``MoEConfig`` keeps the reference's fields and defaults; a mesh is
-    refused, naming item 12."""
+    """``MoEConfig`` keeps the reference's fields and defaults; a
+    one-device mesh runs the unsharded block, as the reference's does, and
+    a larger mesh is refused, naming item 12b."""
     ours = {f.name: f.default for f in dataclasses.fields(MoEConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxMoEConfig)}
     assert ours == theirs
     _, model = _block(dict(dim=DIM, moe_ff=8, n_experts=2, top_k=1))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        model(torch.zeros(1, 2, DIM), mesh=object())
+    x = torch.randn(1, 2, DIM, generator=torch.Generator().manual_seed(0))
+    one = SimpleNamespace(size=lambda: 1)
+    for got, want in zip(model(x, mesh=one), model(x)):
+        assert torch.equal(got, want)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        model(torch.zeros(1, 2, DIM), mesh=SimpleNamespace(size=lambda: 4))
 
 
 def test_stages_are_labelled_only_in_a_profile():

@@ -376,7 +376,9 @@ def test_train_launcher_smoke_on_cpu(tmp_path, capsys):
     assert len(history) == 3 and all(np.isfinite(h["loss"])
                                      for h in history)
     assert state["step"] == 3 and path.exists()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # four devices without a mesh shape: too few for the production mesh
+    with pytest.raises(RuntimeError, match=r"mesh \(16, 16\) needs 256 "
+                                           r"devices, have 4"):
         train_launcher.main(["--device", "cpu", "--smoke",
                              "--device-count", "4"])
 
