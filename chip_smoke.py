@@ -81,9 +81,19 @@ Phases, any failure of which ends the run with a non-zero exit:
      (B 8, N 40, prompt 64, 16 tokens) with the mux, demux and
      decode-demux kernels bitwise the run without a mesh (tokens, prefill
      and step logits), the kernels' launches counted; train and decode
-     step wall ms with and without the mesh, in turns; then
+     step wall ms with and without the mesh, in turns; llama4-scout's
+     expert-parallel MoE block at full width (d 5120, 16 experts of 8192
+     top-1, a shared expert, bf16) through its shard path on the mesh
+     (all-to-all and sums issued over the size-1 ``nccl`` groups) bitwise
+     the unsharded block at a decode (B 8, L 1) and a prefill (B 8, L 40)
+     block, device ms of each; kernels-on lock-step ``Engine.generate`` of
+     llama4-scout (2 of 48 layers, N=8) on the mesh bitwise the run
+     without it; one train step of llama4-scout at one layer on the mesh
+     bitwise the plain step (loss, every parameter and moment); then
      ``launch/train.py`` and ``launch/serve.py`` with ``--mesh-shape
-     1,1`` as subprocesses;
+     1,1`` as subprocesses.  One card: no collective moves a byte, and the
+     multi-rank algebra is held by the CPU tests
+     (``tests/test_torch_distributed.py``);
   8. the sliding window: ``gemma3-4b`` at full width and depth (34 layers:
      29 local with rings of 1024 rows, 5 global), N=8, bf16 (random weights
      from --seed), served by ``ContinuousScheduler`` on the paged pool
@@ -387,9 +397,11 @@ def check_kernels(torch, gen):
             (1, 8, 264, 18432, bf16),
             # llama4-scout-17b-a16e's [moe] shapes: a decode step of 8
             # slots, a chunk of 4 rows, the prime of the 8-token prefix,
-            # the eval (512 tokens + the prefix)
+            # the eval (512 tokens + the prefix); [mesh]'s lock-step
+            # prefill of the prefix and a 32-token prompt
             (8, 8, 1, 5120, bf16), (8, 8, 4, 5120, bf16),
             (8, 8, 8, 5120, bf16), (1, 8, 520, 5120, bf16),
+            (8, 8, 40, 5120, bf16),
             # deepseek-v3-671b's [mla] shapes, the same steps at d 7168
             (8, 8, 1, 7168, bf16), (8, 8, 4, 7168, bf16),
             (8, 8, 8, 7168, bf16), (1, 8, 520, 7168, bf16),
@@ -448,10 +460,12 @@ def check_kernels(torch, gen):
                     ("index_embed_demux", 1, 8, 1280, 2560, 5120, bf16),
                     ("index_embed_demux", 1, 8, 512, 3072, 6144, bf16),
                     # llama4-scout-17b-a16e's [moe] shapes: decode steps
-                    # of one row and chunks of 4, the eval
+                    # of one row and chunks of 4, the eval; [mesh]'s
+                    # lock-step prefill demux (last row)
                     ("decode_demux", 8, 8, 1, 5120, 10240, bf16),
                     ("decode_demux", 8, 8, 4, 5120, 10240, bf16),
                     ("index_embed_demux", 1, 8, 512, 5120, 10240, bf16),
+                    ("index_embed_demux", 8, 8, 1, 5120, 10240, bf16),
                     # deepseek-v3-671b's [mla] shapes (d 7168, H 14336)
                     ("decode_demux", 8, 8, 1, 7168, 14336, bf16),
                     ("decode_demux", 8, 8, 4, 7168, 14336, bf16),
@@ -1897,9 +1911,10 @@ def run_mesh(torch, seed: int):
     moments against its specs' count; (b) lock-step ``generate`` with the
     mux and demux kernels on the mesh bitwise the same run without one
     (tokens, prefill and step logits), counting the kernels' launches in
-    the mesh run; (c) both launchers on a 1,1 mesh as subprocesses.  The
-    wall ms of a train and a decode step with and without the mesh, in
-    turns."""
+    the mesh run; (d) llama4-scout's expert parallelism
+    (``run_mesh_moe``); (c) both launchers on a 1,1 mesh as subprocesses.
+    The wall ms of a train and a decode step with and without the mesh, in
+    turns.  Returns the mux and demux launches of (b) and (d)."""
     import gc
     import os
 
@@ -2032,6 +2047,8 @@ def run_mesh(torch, seed: int):
               + "; ".join(f"{label} {[round(w, 3) for w in ws]}"
                           for label, ws in walls.items()) + f" ({card})")
         del engines, model
+        for name, count in run_mesh_moe(torch, seed, mesh, mi).items():
+            launches[name] = launches.get(name, 0) + count
     finally:
         dist.destroy_process_group()
 
@@ -2058,6 +2075,196 @@ def run_mesh(torch, seed: int):
             raise SystemExit(f"[mesh] FAIL: {module} on a 1,1 mesh")
         print(f"[mesh] (c) {module} --mesh-shape 1,1: "
               f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+MESH_MOE_LAYERS = 2                   # of llama4-scout's 48 in (d)'s serving
+
+
+def profile_block(torch, calls: dict, n: int = 5) -> None:
+    """Host wall ms a call and the device's busy ms a call, launches a call
+    and the largest device rows of each of ``calls`` ({label: fn}), each
+    profiled over ``n`` calls after one more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        for label, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+            events = prof.key_averages()
+            rows = device_rows(events, n)
+            print(f"[profile] (d) MoE block decode, {label}: {wall:.3f} ms "
+                  f"wall a call (profiled), device busy "
+                  f"{sum(t for t, _ in rows):.4f} ms, "
+                  f"{device_launches(events, n):.0f} launches; largest: "
+                  + "; ".join(f"{name[:60]} {t:.4f}"
+                              for t, name in rows[:6]))
+
+
+def run_mesh_moe(torch, seed: int, mesh, mi) -> dict:
+    """(d) llama4-scout-17b-a16e's expert parallelism at full width on the
+    world-1 mesh, bf16, weights from ``seed``, capacity_factor 1.25 (the
+    config's): the MoE block through its shard path (``shortcut=False``:
+    the all-to-all and the sums are issued over the size-1 ``nccl``
+    groups; at world 1 the reference's guards make ``ep2d`` and
+    ``psum_scatter`` the baseline) bitwise the unsharded block, out and
+    aux, at a decode (B 8, L 1) and a prefill (B 8, L 40) block, with the
+    device ms of each; kernels-on lock-step ``generate`` (B 8, N 8,
+    prompt 32, 16 tokens, MESH_MOE_LAYERS layers) through ``Engine(mesh=)``
+    bitwise the run without it; one train step at one layer (the retrieval
+    task, 4 x 8 x 32) on the mesh bitwise the plain step (loss, every
+    parameter and moment).  Returns the serving run's mux and demux
+    launches."""
+    import gc
+
+    from repro_torch.configs.base import ServingConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import RetrievalTask, mux_batches
+    from repro_torch.kernels import _build
+    from repro_torch.models import Backbone
+    from repro_torch.nn.moe import MoE, OnMesh, capacity
+    from repro_torch.serving.engine import Engine
+    from repro_torch.sharding.placement import gather_state
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    card = torch.cuda.get_device_name(0)
+    full = get_config("llama4-scout-17b-a16e", mux_n=8)
+    mcfg = full.moe
+    print(f"[mesh] (d) world 1: no collective moves a byte on one card; "
+          f"the multi-rank algebra (per-shard capacity, the all-to-all, "
+          f"ep2d, psum_scatter, the gradients) is held by the CPU tests "
+          f"(tests/test_torch_distributed.py, 4 gloo ranks)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the block, past the size-1 shortcut
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    moe = MoE(mcfg, generator=gen, device="cuda", dtype=full.pdtype).eval()
+    for label, (b, l) in (("decode", (8, 1)), ("prefill", (8, 40))):
+        x = torch.randn((b, l, mcfg.dim), generator=gen, device="cuda",
+                        dtype=full.pdtype)
+        with torch.inference_mode():
+            def plain():
+                return moe(x)
+
+            def shard():
+                return moe(x, on_mesh=OnMesh(mesh, mi), shortcut=False)
+            want, got = plain(), shard()
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            times = {"plain": [], "shard": []}
+            for fn, key in ((plain, "plain"), (shard, "shard")) * 2:
+                times[key].append(time_ms(fn))
+        print(f"[mesh] (d) MoE block {label} (B {b}, L {l}; capacity "
+              f"{capacity(b * l, mcfg)} per expert): shard path bitwise the "
+              f"unsharded block (out, aux): {same}; device ms shard "
+              f"{[round(t, 4) for t in times['shard']]}, unsharded "
+              f"{[round(t, 4) for t in times['plain']]} (in turns; {card})")
+        if not same:
+            raise SystemExit(f"[mesh] FAIL: the MoE shard path differs from "
+                             f"the unsharded block at the {label} block")
+        if label == "decode":
+            profile_block(torch, {"unsharded": plain, "shard": shard})
+    del moe, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # kernels-on lock-step serving through Engine(mesh=)
+    batch, prompt_len, gen_steps = 8, 32, 16
+    base = dataclasses.replace(full, n_layers=MESH_MOE_LAYERS)
+    kcfg = dataclasses.replace(
+        base, mux=dataclasses.replace(base.mux, use_kernel=True),
+        serving=ServingConfig(fuse_demux=True))
+    model = Backbone(kcfg, seed=seed, device="cuda").eval()
+    n = kcfg.mux.n
+    engines = {"mesh": Engine(model, batch=batch,
+                              max_len=prompt_len + gen_steps + 1,
+                              mesh=mesh, mesh_info=mi),
+               "plain": Engine(model, batch=batch,
+                               max_len=prompt_len + gen_steps + 1)}
+    prompts = torch.randint(0, kcfg.vocab, (batch, n, prompt_len),
+                            generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    tokens = {"mesh": engines["mesh"].generate(prompts, gen_steps)}
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    tokens["plain"] = engines["plain"].generate(prompts, gen_steps)
+    logits = {}
+    for label, e in engines.items():
+        first, state = e.prefill(prompts)
+        logits[label] = (first, e.step(state, tokens[label][..., 0])[0])
+    same = (torch.equal(tokens["mesh"], tokens["plain"])
+            and all(torch.equal(a, b) for a, b in zip(logits["mesh"],
+                                                      logits["plain"])))
+    print(f"[mesh] (d) llama4-scout {MESH_MOE_LAYERS} of {full.n_layers} "
+          f"layers: generate {batch} x {n} streams x {gen_steps} tokens with "
+          f"the mux and demux kernels, on the mesh bitwise without it "
+          f"(tokens, prefill and step logits): {same}; launches in the mesh "
+          f"run {launches}")
+    missing = [k for k in ("hadamard_mux", "index_embed_demux",
+                           "decode_demux") if not launches.get(k)]
+    if not same or missing:
+        raise SystemExit(f"[mesh] FAIL: llama4-scout serving on the mesh "
+                         f"differs or never launched {missing}")
+    del engines, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one train step at one layer, the plain step's results kept on the
+    # host while the mesh step runs
+    cfg = dataclasses.replace(full, n_layers=1)
+    tcfg = TrainConfig(task="retrieval", lr=3e-3, warmup=1, total_steps=10)
+    batch = {k: torch.as_tensor(v).long().cuda() for k, v in next(iter(
+        mux_batches(RetrievalTask(vocab=cfg.vocab, seq_len=32), groups=4,
+                    n_mux=n, steps=1, seed=seed))).items()}
+    kept, nbytes = None, 0
+    for label, kw in (("plain", {}), ("mesh", dict(mesh=mesh,
+                                                   mesh_info=mi))):
+        torch.cuda.reset_peak_memory_stats()
+        state = Trainer.init_state(cfg, tcfg, seed=seed, device="cuda")
+        step = Trainer.make_train_step(cfg, tcfg, **kw)
+        rng = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, rng)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        opt = state["opt_state"] if label == "plain" else \
+            gather_state(state)["opt_state"]
+        tensors = {"loss": m["loss"], **{
+            f"param {k}": v for k, v in Trainer.params(state).items()}, **{
+            f"{mom} {k}": v for mom in ("mu", "nu")
+            for k, v in opt[mom].items()}}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if label == "plain":
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in tensors.values())
+            kept = {k: t.detach().cpu() for k, t in tensors.items()}
+            print(f"[mesh] (d) llama4-scout at 1 layer: plain train step "
+                  f"{wall:.1f} ms wall (the first), loss {float(m['loss'])}, "
+                  f"peak {peak:.2f} GB; parameters and moments "
+                  f"{nbytes / 1e9:.2f} GB kept on the host")
+        else:
+            same = kept.keys() == tensors.keys() and all(
+                torch.equal(kept[k].cuda(), t) for k, t in tensors.items())
+            print(f"[mesh] (d) llama4-scout at 1 layer: mesh train step "
+                  f"{wall:.1f} ms wall (the first: placement included), loss "
+                  f"{float(m['loss'])}, peak {peak:.2f} GB; bitwise the plain "
+                  f"step (loss, {len(tensors) - 1} parameters and moments): "
+                  f"{same}")
+            if not same:
+                raise SystemExit("[mesh] FAIL: the llama4-scout train step "
+                                 "on the mesh differs from the plain step")
+        del state, step, opt, tensors, m
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 

@@ -14,6 +14,7 @@ cross-attention K/V (``encode_context``) by absolute layer index.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -25,7 +26,7 @@ from repro_torch.nn.attention import (MLA, Attention, CrossAttention,
                                       paged_eligible)
 from repro_torch.nn.layers import (MLP, Embedding, Linear, make_norm,
                                    profiler_label)
-from repro_torch.nn.moe import MoE
+from repro_torch.nn.moe import MoE, OnMesh
 from repro_torch.nn.ssm import MLSTM, SLSTM, Mamba
 
 
@@ -136,15 +137,15 @@ class Block(nn.Module):
 
     def forward(self, x, *, positions, cache=None, cache_index=None,
                 block_table=None, chunk_lens=None, row_mask=None,
-                cross_kv=None):
+                cross_kv=None, on_mesh: Optional[OnMesh] = None):
         """-> (x, cache, aux): ``aux`` is the MoE load-balance loss, None
         for a dense block.  ``cross_kv`` is this layer's context K/V
         (``CrossAttention.precompute_kv``), which a cross layer needs.
         ``row_mask`` (B, L) marks the rows the MoE dispatch counts (None:
-        all).  A Mamba mixer takes the cache and
-        ``chunk_lens`` only: it has no positions, cache index or block
-        table; an mLSTM or sLSTM mixer the cache only, and it refuses
-        ``chunk_lens`` as the reference does."""
+        all).  ``on_mesh`` goes to the MoE layer (``MoE.forward``).  A
+        Mamba mixer takes the cache and ``chunk_lens`` only: it has no
+        positions, cache index or block table; an mLSTM or sLSTM mixer the
+        cache only, and it refuses ``chunk_lens`` as the reference does."""
         xlstm = self.mlstm if self.mlstm is not None else self.slstm
         if xlstm is not None:
             if chunk_lens is not None:
@@ -173,7 +174,7 @@ class Block(nn.Module):
         if self.mlp is not None:
             x = x + self.mlp(self.norm2(x))
         elif self.moe is not None:
-            out, aux = self.moe(self.norm2(x), row_mask)
+            out, aux = self.moe(self.norm2(x), row_mask, on_mesh=on_mesh)
             x = x + out
         return x, cache, aux
 
@@ -301,11 +302,13 @@ class Backbone(nn.Module):
             return self.embed.attend(h)
         return self.lm_head(h)
 
-    def encode_context(self, context) -> dict:
+    def encode_context(self, context, *,
+                       on_mesh: Optional[OnMesh] = None) -> dict:
         """context (B, Lc, context_dim) -> {layer index: {"k", "v"}} for
         each cross layer: the context cast to the compute dtype, through
         the encoder stack (bidirectional, profiler label ``encoder``) when
-        the config has one, then each cross layer's K/V projections."""
+        the config has one, then each cross layer's K/V projections.
+        ``on_mesh``: as ``forward``."""
         ctx = context.to(self.cfg.compute_dtype)
         if self.encoder is not None:
             with profiler_label("encoder"):
@@ -313,7 +316,7 @@ class Backbone(nn.Module):
                 pos = torch.arange(x.shape[1], dtype=torch.int32,
                                    device=x.device).expand(x.shape[:2])
                 for layer in self.encoder.layers:
-                    x, _, _ = layer(x, positions=pos)
+                    x, _, _ = layer(x, positions=pos, on_mesh=on_mesh)
                 ctx = self.encoder.final_norm(x)
         return {i: layer.cross.precompute_kv(ctx)
                 for i, layer in enumerate(self.layers)
@@ -321,7 +324,7 @@ class Backbone(nn.Module):
 
     def _run_blocks(self, x, *, positions, cache=None, cache_index=None,
                     block_table=None, chunk_lens=None, row_mask=None,
-                    cross_kv=None):
+                    cross_kv=None, on_mesh: Optional[OnMesh] = None):
         """-> (final-normed hidden, the MoE layers' aux losses summed in
         layer order as a float32 scalar)."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -332,7 +335,7 @@ class Backbone(nn.Module):
                               cache_index=cache_index,
                               block_table=block_table,
                               chunk_lens=chunk_lens, row_mask=row_mask,
-                              cross_kv=cross_kv.get(i))
+                              cross_kv=cross_kv.get(i), on_mesh=on_mesh)
             if aux is not None:
                 aux_total = aux_total + aux
         return self.final_norm(x), aux_total
@@ -352,7 +355,7 @@ class Backbone(nn.Module):
     # -- full-sequence forward (train / prefill) ----------------------------------
 
     def forward(self, tokens, *, context=None, cross_kv=None, cache=None,
-                last_only: bool = False):
+                last_only: bool = False, on_mesh: Optional[OnMesh] = None):
         """The reference's ``Backbone.apply`` (``nn.Module.apply`` is taken).
         tokens: (B, N, L) when mux active else (B, L).
 
@@ -367,10 +370,13 @@ class Backbone(nn.Module):
         ``context`` (B, Lc, context_dim) is encoded here
         (``encode_context``) unless ``cross_kv`` gives it encoded already
         (the serving engine encodes once per request).
+        ``on_mesh`` (an ``OnMesh``) runs every MoE layer's expert-parallel
+        path; the batch rows are this rank's over its ``row_axes``
+        (``MoE.forward``).
         """
         mux = self.cfg.mux
         if cross_kv is None and context is not None:
-            cross_kv = self.encode_context(context)
+            cross_kv = self.encode_context(context, on_mesh=on_mesh)
         if mux.active:
             demux_s = get_demux(mux.demux)
             b, n, _ = tokens.shape
@@ -389,7 +395,7 @@ class Backbone(nn.Module):
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device).expand(b, x.shape[1])
         h, aux = self._run_blocks(x, positions=positions, cache=cache,
-                                  cross_kv=cross_kv)
+                                  cross_kv=cross_kv, on_mesh=on_mesh)
 
         out = {"hidden": h, "index_embeds": None, "cache": cache,
                "aux": aux}
@@ -415,7 +421,7 @@ class Backbone(nn.Module):
 
     def decode_step(self, tokens, cache, cache_index, *, index_embeds=None,
                     cross_kv=None, lane_mask=None, block_table=None,
-                    chunk_lens=None):
+                    chunk_lens=None, on_mesh: Optional[OnMesh] = None):
         """One decode step.
 
         tokens: (B, N) last generated token per stream when mux active,
@@ -435,6 +441,8 @@ class Backbone(nn.Module):
         ``[cache_index[b], cache_index[b] + chunk_lens[b])``.  ``lane_mask``
         is then (B, N, C): a lane that is not ramping contributes its token
         at row 0 only.  Returns logits (B, N, C, vocab) / (B, C, vocab).
+
+        ``on_mesh``: as ``forward``.
         """
         mux = self.cfg.mux
         ci = torch.as_tensor(cache_index, dtype=torch.int32,
@@ -445,7 +453,7 @@ class Backbone(nn.Module):
                 torch.as_tensor(chunk_lens, dtype=torch.int32,
                                 device=self.device),
                 index_embeds=index_embeds, cross_kv=cross_kv,
-                lane_mask=lane_mask, block_table=block_table)
+                lane_mask=lane_mask, block_table=block_table, on_mesh=on_mesh)
         if mux.active:
             b = tokens.shape[0]
             emb = self.embed_tokens(tokens[:, :, None])         # (B, N, 1, d)
@@ -467,7 +475,8 @@ class Backbone(nn.Module):
             row_mask = lane_mask.bool().any(dim=1)[:, None]      # (B, 1)
         h, _ = self._run_blocks(x, positions=positions, cache=cache,
                                 cache_index=ci, block_table=block_table,
-                                row_mask=row_mask, cross_kv=cross_kv)
+                                row_mask=row_mask, cross_kv=cross_kv,
+                                on_mesh=on_mesh)
 
         if mux.active:
             demuxed = self._demux_decode(h, index_embeds)
@@ -483,7 +492,8 @@ class Backbone(nn.Module):
 
     def _chunked_decode_step(self, tokens, cache, ci, chunk_lens, *,
                              index_embeds=None, cross_kv=None,
-                             lane_mask=None, block_table=None):
+                             lane_mask=None, block_table=None,
+                             on_mesh: Optional[OnMesh] = None):
         """Chunked-prefill decode step (see ``decode_step``): a (B, ., C)
         token chunk advances slot b by ``chunk_lens[b]`` positions."""
         mux = self.cfg.mux
@@ -511,7 +521,7 @@ class Backbone(nn.Module):
         h, _ = self._run_blocks(x, positions=positions, cache=cache,
                                 cache_index=ci, block_table=block_table,
                                 chunk_lens=chunk_lens, row_mask=row_mask,
-                                cross_kv=cross_kv)
+                                cross_kv=cross_kv, on_mesh=on_mesh)
 
         if mux.active:
             demuxed = self._demux_decode(h, index_embeds)

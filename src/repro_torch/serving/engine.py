@@ -40,8 +40,12 @@ process returns.  The parameters are replicated, as the reference's
 launcher leaves them.  The continuous scheduler, the paged pool and the
 router build their states with ``prime``, which is not split: on a mesh
 every rank runs all their rows (splitting their slots across ranks is a
-later ROADMAP item).  MoE layers on a mesh of more than one device are
-refused (expert parallelism is ROADMAP item 12b).
+later ROADMAP item).  Every model call gets the mesh, so an MoE layer
+runs the reference's expert-parallel block: on the rank's rows of a
+lock-step state, and on a primed state's whole batch, of which it takes
+the rank's shard (``MoE.forward``), so that each shard's capacity is
+the reference's.  Experts the mesh cannot split evenly raise
+(``nn.moe.check_mesh``).
 
 Engine methods run under ``torch.inference_mode()``.
 """
@@ -55,8 +59,7 @@ import torch
 
 from repro_torch.models import Backbone
 from repro_torch.nn.attention import cache_rows
-from repro_torch.nn.moe import (SINGLE, MeshInfo,
-                                 refuse_expert_parallel)
+from repro_torch.nn.moe import SINGLE, MeshInfo, OnMesh, check_model_mesh
 from repro_torch.serving.telemetry import NULL_TRACER
 
 
@@ -79,7 +82,8 @@ class ServeState:
 class Engine:
     def __init__(self, model: Backbone, *, batch: int, max_len: int,
                  mesh=None, mesh_info: MeshInfo = SINGLE):
-        refuse_expert_parallel(model.cfg, mesh)
+        if mesh is not None:
+            check_model_mesh(model.cfg, mesh_info)
         self.model = model
         self.cfg = model.cfg
         self.batch = batch
@@ -138,10 +142,11 @@ class Engine:
         if self.mesh is not None:
             tokens = tokens[rows]
             context = None if context is None else context[rows]
-        cross_kv = self._encode(context)
+        on_mesh = self._on_mesh(split=True)
+        cross_kv = self._encode(context, on_mesh)
         cache = self.model.init_cache(rows.stop - rows.start, self.max_len)
         out = self.model(tokens, cross_kv=cross_kv, cache=cache,
-                         last_only=True)
+                         last_only=True, on_mesh=on_mesh)
         lp = tokens.shape[-1] + self.cfg.mux.prefix_len
         pos = torch.tensor(lp, dtype=torch.int32, device=self.device)
         return self._gather(out["logits"][..., -1, :]), ServeState(
@@ -155,11 +160,21 @@ class Engine:
         from repro_torch.sharding.placement import gather_rows
         return gather_rows(logits, self.mesh, self._axes)
 
-    def _encode(self, context):
+    def _on_mesh(self, split: bool) -> Optional[OnMesh]:
+        """The model's mesh: the batch rows this rank's (``split``,
+        lock-step) or all of them (a primed state)."""
+        if self.mesh is None:
+            return None
+        return OnMesh(self.mesh, self.mesh_info,
+                      self._axes if split else ())
+
+    def _encode(self, context, on_mesh: Optional[OnMesh]):
         if context is None:
             return None
-        return self.model.encode_context(
-            torch.as_tensor(context, device=self.device))
+        ctx = torch.as_tensor(context, device=self.device)
+        # without a mesh, the call one process makes
+        return self.model.encode_context(ctx) if on_mesh is None \
+            else self.model.encode_context(ctx, on_mesh=on_mesh)
 
     @torch.inference_mode()
     def prime(self, context=None, *, compact: bool = False) -> ServeState:
@@ -182,14 +197,16 @@ class Engine:
         prefix runs without it, as in the reference: a cross layer then
         refuses the prefix."""
         cfg = self.cfg
-        cross_kv = self._encode(context)
+        on_mesh = self._on_mesh(split=False)
+        cross_kv = self._encode(context, on_mesh)
         p = cfg.mux.prefix_len
         if cfg.mux.active and p:
             cache = self.model.init_cache(self.batch,
                                           p if compact else self.max_len)
             empty = torch.zeros((self.batch, cfg.mux.n, 0), dtype=torch.int32,
                                 device=self.device)
-            out = self.model(empty, cache=cache, last_only=True)
+            out = self.model(empty, cache=cache, last_only=True,
+                             on_mesh=on_mesh)
             cache, index_embeds = out["cache"], out["index_embeds"]
         else:
             cache = self.model.init_cache(self.batch,
@@ -217,7 +234,8 @@ class Engine:
     def _build_variant(self, width: int, batch: int) -> "Engine":
         serve_len = self.max_len - self.cfg.mux.prefix_len
         eng = Engine(self.model.narrowed(width), batch=batch,
-                     max_len=serve_len)
+                     max_len=serve_len, mesh=self.mesh,
+                     mesh_info=self.mesh_info)
         eng.tracer = self.tracer
         return eng
 
@@ -252,7 +270,8 @@ class Engine:
             tokens, state.cache, pos,
             index_embeds=state.index_embeds, cross_kv=state.cross_kv,
             lane_mask=lane_mask, block_table=block_table,
-            chunk_lens=chunk_lens)
+            chunk_lens=chunk_lens,
+            on_mesh=self._on_mesh(split=state.rows is not None))
         if self.tracer.enabled:
             # Host wall-clock of the step's dispatch: the device runs
             # asynchronously and is not waited for here.

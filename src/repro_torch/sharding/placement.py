@@ -9,13 +9,16 @@ steps insert.
   which is JAX's order and DTensor's when the names follow the mesh's.
 * ``place`` / ``place_state`` hold a tensor, or a ``Trainer`` state's
   parameters and AdamW moments, at their specs: each rank keeps only its
-  own shard (a copy, so no view pins the whole tensor).
+  own shard (a copy, so no view pins the whole tensor), and a tensor it
+  holds whole as it is (a parameter then shares its storage with the
+  model's compute copy).
 * ``batch_rows`` is the slice of a (B, L, ...) batch that this rank
   computes: the rows of its coordinate on the axes ``MeshInfo.bl_entries``
   gives the batch; an axis given to the sequence, and the model axis,
   compute the same rows on every rank.
-* ``mean_over`` all-reduces tensors to their mean over those axes;
-  ``gather_rows`` all-gathers row slices back into the whole batch.
+* ``mean_over`` / ``sum_over`` all-reduce tensors to their mean or sum
+  over those axes; ``gather_rows`` all-gathers row slices back into the
+  whole batch.
 
 ``torch.distributed.tensor`` is imported where it is used, so importing
 this module starts nothing.
@@ -61,12 +64,15 @@ def local_slice(t: torch.Tensor, mesh, pls) -> torch.Tensor:
 
 
 def place(t: torch.Tensor, mesh, spec: tuple):
-    """A DTensor holding ``t`` (the same on every rank) at ``spec``."""
+    """A DTensor holding ``t`` (the same on every rank) at ``spec``: this
+    rank's shard copied, or ``t`` itself where the rank holds it whole."""
     from torch.distributed.tensor import DTensor
     pls = placements(spec, mesh)
-    return DTensor.from_local(local_slice(t, mesh, pls).clone(), mesh, pls,
-                              run_check=False, shape=t.shape,
-                              stride=t.stride())
+    local = local_slice(t, mesh, pls)
+    if local.shape != t.shape:
+        local = local.clone()
+    return DTensor.from_local(local, mesh, pls, run_check=False,
+                              shape=t.shape, stride=t.stride())
 
 
 def place_state(state: dict, mesh, sspecs: dict) -> dict:
@@ -113,27 +119,43 @@ def spec_bytes(shape, dtype: torch.dtype, spec: tuple, mi: MeshInfo) -> int:
         .element_size()
 
 
+def part(mesh, n: int, axes) -> slice:
+    """This rank's chunk of ``n`` items split over the mesh axes ``axes``,
+    the major first (an axis the mesh lacks holds them whole)."""
+    pos, parts = 0, 1
+    for a in axes:
+        if a in mesh.mesh_dim_names:
+            size = mesh.size(mesh.mesh_dim_names.index(a))
+            pos, parts = pos * size + mesh.get_local_rank(a), parts * size
+    n //= parts
+    return slice(pos * n, (pos + 1) * n)
+
+
 def batch_rows(mesh, mi: MeshInfo, b: int, l: int) -> tuple[slice, tuple]:
     """(the rows of a (B, L, ...) batch this rank computes, the mesh axes
     the batch is split over, major first)."""
     axes = mi.bl_entries(b, l)[0] or ()
-    pos, parts = 0, 1
-    for a in axes:
-        size = mesh.size(mesh.mesh_dim_names.index(a))
-        pos, parts = pos * size + mesh.get_local_rank(a), parts * size
-    n = b // parts
-    return slice(pos * n, (pos + 1) * n), axes
+    return part(mesh, b, axes), axes
 
 
 def mean_over(tensors: list, mesh, axes: tuple) -> list:
     """The mean of each tensor over the ranks of ``axes`` (one all-reduce
     per axis and dtype over the tensors flattened together); the tensors
     themselves with no axis."""
+    return sum_over(tensors, mesh, axes, mean=True)
+
+
+def sum_over(tensors: list, mesh, axes: tuple, *, mean: bool = False
+             ) -> list:
+    """The sum (``mean``: the mean) of each tensor over the ranks of
+    ``axes``, as ``mean_over``."""
     if not axes:
         return tensors
-    count = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
+    count = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes) \
+        if mean else 1
     out = list(tensors)
-    for dtype in {t.dtype for t in tensors}:
+    # first-seen order: every rank issues the same all-reduces in turn
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
         idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         for a in axes:

@@ -17,13 +17,18 @@ On a mesh (``make_train_step(mesh=, mesh_info=)``) the state is held as
 ``sharding.state_specs`` places it (``sharding.placement.place_state``):
 "params" and the AdamW moments become DTensors, each rank holding its
 shard, and the model keeps the full parameters as the copy the forward
-runs on.  A step splits the batch rows over the axes
-``MeshInfo.bl_entries`` gives the batch, runs ``Trainer.grads`` on this
-rank's rows, averages loss, metrics and gradients over those axes, clips
-by the global norm (the same on every rank), applies AdamW to each rank's
-shard of the parameters and moments, and gathers the parameters back into
-the model: the numbers of one process, up to the order of the sums.
-Tensor-parallel matmuls and a per-layer gather are not ported (ROADMAP).
+runs on.  A step cuts the batch into its microbatches, as the reference
+does, splits each microbatch's rows over the axes ``MeshInfo.bl_entries``
+gives it, runs ``Trainer.grads`` on this rank's rows, averages loss,
+metrics and gradients over the mesh's batch axes, clips by the global
+norm (the same on every rank), applies AdamW to each rank's shard of the
+parameters and moments, and gathers the parameters back into the model:
+the numbers of one process, up to the order of the sums.  Tensor-parallel
+matmuls and a per-layer gather are not ported (ROADMAP).  An MoE layer
+runs the reference's expert-parallel block (``nn.moe``): per-shard
+capacity and aux, the tokens all-to-all over the data axis.  Its router
+and expert gradients come back as each rank's shard, which a sum over the
+model axis completes (``nn.moe.complete_grads``).
 """
 from __future__ import annotations
 
@@ -37,8 +42,8 @@ from repro_torch.bridge import decay_mask
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import retrieval as retr
 from repro_torch.models import Backbone
-from repro_torch.nn.moe import (SINGLE, MeshInfo,
-                                 refuse_expert_parallel)
+from repro_torch.nn.moe import (SINGLE, MeshInfo, OnMesh, check_model_mesh,
+                                complete_grads)
 from repro_torch.optim import AdamW, clip_by_global_norm
 from repro_torch.optim.schedule import linear_warmup_cosine
 from repro_torch.training import losses
@@ -116,15 +121,17 @@ class Trainer:
 
     @staticmethod
     def loss_fn(state: dict, batch: dict, rng, cfg: ModelConfig,
-                tcfg: TrainConfig, *, retr_index=None):
+                tcfg: TrainConfig, *, retr_index=None,
+                on_mesh: Optional[OnMesh] = None):
         """(total, metrics) of the paper's mixed objective, as the
         reference computes it.  ``rng`` is the ``torch.Generator`` the
         retrieval auxiliary draws its instance index from, unless
         ``retr_index`` (B, L) gives that index.  A ``context`` in the batch
-        (B, Lc, context_dim) goes to the model's cross layers."""
+        (B, Lc, context_dim) goes to the model's cross layers.
+        ``on_mesh`` goes to the model (``Backbone.forward``)."""
         model = state["model"]
         tokens = batch["tokens"]
-        out = model(tokens, context=batch.get("context"))
+        out = model(tokens, context=batch.get("context"), on_mesh=on_mesh)
         mux = cfg.mux
 
         if tcfg.task == "lm":
@@ -166,7 +173,8 @@ class Trainer:
 
     @staticmethod
     def grads(state: dict, batch: dict, rng, cfg: ModelConfig,
-              tcfg: TrainConfig, *, retr_index=None):
+              tcfg: TrainConfig, *, retr_index=None,
+              on_mesh: Optional[OnMesh] = None):
         """(loss, metrics, grads) of ``loss_fn`` by autograd over the plain
         path, grads keyed by ``Trainer.params``' names (zeros for a tensor
         the loss does not reach, e.g. a frozen mux transform, as the
@@ -175,7 +183,8 @@ class Trainer:
         and loss, metrics and grads are summed over the chunks and divided
         by k, as the reference's scan does; ``retr_index`` is then a list
         of one (B/k, L) index per chunk (the reference draws chunk i's
-        from the i-th key of ``jax.random.split(rng, k)``)."""
+        from the i-th key of ``jax.random.split(rng, k)``).  ``on_mesh``:
+        as ``loss_fn``."""
         k = tcfg.microbatch if tcfg.microbatch and tcfg.microbatch > 1 else 1
         params = Trainer.params(state)
         if "task_head" in state:
@@ -199,7 +208,8 @@ class Trainer:
         with torch.enable_grad():
             for chunk, ix in zip(chunks, index):
                 loss, metrics = Trainer.loss_fn(state, chunk, rng, cfg, tcfg,
-                                                retr_index=ix)
+                                                retr_index=ix,
+                                                on_mesh=on_mesh)
                 loss.backward()
                 loss_sum = loss_sum + loss.detach()
                 for key, v in metrics.items():
@@ -219,27 +229,33 @@ class Trainer:
     def mesh_grads(state: dict, batch: dict, rng, cfg: ModelConfig,
                    tcfg: TrainConfig, *, mesh, mesh_info: MeshInfo,
                    retr_index=None):
-        """``Trainer.grads`` of the whole batch on ``mesh``: this rank's
-        rows (``placement.batch_rows``) through ``Trainer.grads``, then
-        loss, metrics and grads averaged over the batch axes, so every rank
-        holds the whole batch's.  The batch's microbatches (``tcfg``'s
-        b / k rows each) are this rank's rows, or hold them.  The retrieval
-        index is the whole batch's: ``retr_index`` as ``Trainer.grads``
-        takes it, or drawn from ``rng`` as one process draws it (k (b / k,
-        L) draws), this rank taking its rows."""
+        """``Trainer.grads`` of the whole batch on ``mesh``, in the
+        reference's order: the batch cut into its k microbatches
+        (``tcfg``'s, b / k rows each), this rank's rows of each
+        (``placement.batch_rows`` of a microbatch) through
+        ``Trainer.grads``, then loss, metrics and grads averaged over the
+        mesh's batch axes, so every rank holds the whole batch's, and the
+        MoE layers' gradients completed over the model axis
+        (``nn.moe.complete_grads``).  A batch axis that a microbatch gives
+        to the sequence, or does not split, leaves the rank all of its
+        rows; an MoE layer takes its shard of them inside the block.  The
+        retrieval index is the whole batch's: ``retr_index`` as
+        ``Trainer.grads`` takes it, or drawn from ``rng`` as one process
+        draws it (k (b / k, L) draws), this rank taking its rows."""
         from repro_torch.sharding import placement
         model = state["model"]
         _refuse_flash(model)
         batch = {key: _to_device(v, model.device)
                  for key, v in batch.items()}
         b, l = batch["tokens"].shape[0], batch["tokens"].shape[-1]
-        rows, axes = placement.batch_rows(mesh, mesh_info, b, l)
-        n_rows = rows.stop - rows.start
         k = tcfg.microbatch if tcfg.microbatch and tcfg.microbatch > 1 else 1
-        if (n_rows * k) % b and b % (n_rows * k):
-            raise ValueError(f"microbatch={k} does not split the batch's "
-                             f"{b} rows into this rank's {n_rows}")
-        k_loc = max(1, n_rows * k // b)
+        if b % k:
+            raise ValueError(f"microbatch={k} does not divide the batch's "
+                             f"{b} rows")
+        rows, axes = placement.batch_rows(mesh, mesh_info, b // k, l)
+        # this rank's rows of each microbatch, the microbatches in order
+        mine = torch.cat([torch.arange(rows.start, rows.stop) + i * (b // k)
+                          for i in range(k)]).to(model.device)
         mux = cfg.mux
         index = None
         if retr_index is not None:
@@ -250,16 +266,18 @@ class Trainer:
                                                     device=model.device)
                                for _ in range(k)])
         if index is not None:
-            index = index[rows]
-            index = list(index.chunk(k_loc)) if k_loc > 1 else index
+            index = index[mine]
+            index = list(index.chunk(k)) if k > 1 else index
         loss, metrics, grads = Trainer.grads(
-            state, {key: v[rows] for key, v in batch.items()}, rng, cfg,
-            dataclasses.replace(tcfg, microbatch=k_loc), retr_index=index)
+            state, {key: v[mine] for key, v in batch.items()}, rng, cfg,
+            tcfg, retr_index=index, on_mesh=OnMesh(mesh, mesh_info, axes))
         names = list(metrics)
         flat = placement.mean_over(
-            [loss, *metrics.values(), *grads.values()], mesh, axes)
-        return (flat[0], dict(zip(names, flat[1:1 + len(names)])),
-                dict(zip(grads, flat[1 + len(names):])))
+            [loss, *metrics.values(), *grads.values()], mesh,
+            _split_axes(mesh, (mesh_info.pod_axis, mesh_info.data_axis)))
+        grads = complete_grads(model, dict(zip(grads, flat[1 + len(names):])),
+                               mesh, mesh_info)
+        return flat[0], dict(zip(names, flat[1:1 + len(names)])), grads
 
     @staticmethod
     def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
@@ -275,8 +293,8 @@ class Trainer:
         With ``mesh`` (a ``DeviceMesh``; ``mesh_info`` its ``MeshInfo``)
         the first step also places the state on it, and each step runs
         as the module docstring says; ``retr_index`` is the whole batch's.
-        A config with MoE layers on a mesh of more than one device is
-        refused: expert parallelism is ROADMAP item 12b."""
+        A config whose experts the mesh cannot split evenly raises
+        (``nn.moe.check_mesh``)."""
         if cfg.mux.use_kernel:
             raise ValueError(
                 "make_train_step: mux.use_kernel sends the forward through "
@@ -365,7 +383,7 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, opt, mesh,
                      mi: MeshInfo) -> Callable:
     """The train step on ``mesh`` (``Trainer.make_train_step``)."""
     from repro_torch.sharding import placement, state_specs
-    refuse_expert_parallel(cfg, mesh)
+    check_model_mesh(cfg, mi)
 
     def train_step(state, batch, rng, *, retr_index=None):
         if "params" not in state:
@@ -414,6 +432,13 @@ def _adamw_on_shards(opt, grads: dict, state: dict, decay: dict,
                 mesh, p.placements)
         whole = all(pl.is_replicate() for pl in p.placements)
         compute[name].copy_(p.to_local() if whole else p.full_tensor())
+
+
+def _split_axes(mesh, axes) -> tuple:
+    """Those of ``axes`` the mesh has and splits (size > 1)."""
+    names = mesh.mesh_dim_names
+    return tuple(a for a in axes
+                 if a in names and mesh.size(names.index(a)) > 1)
 
 
 def _to_device(a, device) -> torch.Tensor:

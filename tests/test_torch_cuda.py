@@ -1083,3 +1083,34 @@ def test_image_models_match_the_cpu_on_card(cuda, model, strategy):
     for w, a in zip(*out):
         assert (a.cpu() - w).abs().max().item() <= 1e-4 * max(
             1.0, w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_moe_shard_path_at_world_one_is_the_unsharded_block(cuda):
+    """The expert-parallel path of the MoE block, run past the size-1
+    shortcut on a world-1 ``nccl`` mesh (its all-to-all and sums issued
+    over size-1 groups), is bitwise the unsharded block in out and aux,
+    bf16, at a decode block (B 8, L 1) and a prefill block (B 8, L 40)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.nn.moe import MoE, MoEConfig, OnMesh
+    from repro_torch.sharding import mesh_info_from_mesh
+
+    cfg = MoEConfig(dim=512, moe_ff=1024, n_experts=16, top_k=1,
+                    n_shared_experts=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    moe = MoE(cfg, generator=gen, device=cuda, dtype=torch.bfloat16)
+    mesh = make_test_mesh(cuda)
+    try:
+        mi = mesh_info_from_mesh(mesh)
+        for rows in (1, 40):
+            x = torch.randn(8, rows, cfg.dim, generator=gen, device=cuda,
+                            dtype=torch.bfloat16)
+            with torch.no_grad():
+                want = moe(x)
+                got = moe(x, on_mesh=OnMesh(mesh, mi), shortcut=False)
+            assert torch.equal(got[0], want[0]), rows
+            assert torch.equal(got[1], want[1]), rows
+    finally:
+        dist.destroy_process_group()

@@ -200,18 +200,21 @@ def test_capacity_is_the_references_arithmetic():
 
 def test_config_fields_match_the_references():
     """``MoEConfig`` keeps the reference's fields and defaults; a
-    one-device mesh runs the unsharded block, as the reference's does, and
-    a larger mesh is refused, naming item 12b."""
+    one-device mesh runs the unsharded block, as the reference's does; on
+    a larger mesh, experts the expert-parallel size does not divide (2
+    over data 4) raise a ValueError naming item 12b, before any
+    collective."""
     ours = {f.name: f.default for f in dataclasses.fields(MoEConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxMoEConfig)}
     assert ours == theirs
     _, model = _block(dict(dim=DIM, moe_ff=8, n_experts=2, top_k=1))
     x = torch.randn(1, 2, DIM, generator=torch.Generator().manual_seed(0))
-    one = SimpleNamespace(size=lambda: 1)
-    for got, want in zip(model(x, mesh=one), model(x)):
+    one = torch_moe.OnMesh(SimpleNamespace(size=lambda: 1), torch_moe.SINGLE)
+    for got, want in zip(model(x, on_mesh=one), model(x)):
         assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        model(torch.zeros(1, 2, DIM), mesh=SimpleNamespace(size=lambda: 4))
+    with pytest.raises(ValueError, match="item 12b"):
+        model(torch.zeros(1, 2, DIM), on_mesh=torch_moe.OnMesh(
+            SimpleNamespace(size=lambda: 4), torch_moe.MeshInfo(data_size=4)))
 
 
 def test_stages_are_labelled_only_in_a_profile():

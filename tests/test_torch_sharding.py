@@ -322,3 +322,34 @@ def test_meshes_and_placements():
         8 * 16 * 4 // 8
     assert spec_bytes((8, 16), torch.bfloat16, (None, "model"), mi) == \
         8 * 16 * 2 // 4
+
+
+MOE_MESHES = {
+    "2x2": dict(data_size=2, model_size=2),
+    "4x1": dict(data_size=4, model_size=1),
+    "1x4": dict(data_size=1, model_size=4),
+    "pod2x16x16": dict(pod_axis="pod", pod_size=2, data_size=16,
+                       model_size=16),
+}
+
+
+@pytest.mark.parametrize("mesh", sorted(MOE_MESHES))
+@pytest.mark.parametrize("ep2d", [False, True])
+@pytest.mark.parametrize("gated", [True, False])
+def test_moe_param_specs_match_the_references(mesh, ep2d, gated):
+    """``nn.moe.param_specs`` is the reference's ``MoE.param_specs``, on its
+    layout: 256 experts, so that ``ep2d`` engages wherever the model axis
+    is split (not at (4, 1), where both are the baseline)."""
+    from repro.nn.moe import MoE as JaxMoE
+    from repro.nn.moe import MoEConfig as JaxMoEConfig
+    from repro_torch.nn import moe
+    kw = dict(dim=64, moe_ff=32, n_experts=256, top_k=2, gated=gated,
+              ep2d=ep2d)
+    mi = MeshInfo(**MOE_MESHES[mesh])
+    want = jax.tree.map(tuple, JaxMoE.param_specs(
+        JaxMoEConfig(**kw), JaxMeshInfo(**MOE_MESHES[mesh])),
+        is_leaf=lambda x: isinstance(x, P))
+    got = moe.param_specs(moe.MoEConfig(**kw), mi)
+    assert got == want
+    assert moe.use_ep2d(moe.MoEConfig(**kw), mi) == (
+        ep2d and mi.model_size > 1)
