@@ -94,6 +94,19 @@ Phases, any failure of which ends the run with a non-zero exit:
      1,1`` as subprocesses.  One card: no collective moves a byte, and the
      multi-rank algebra is held by the CPU tests
      (``tests/test_torch_distributed.py``);
+ 7c. the dry-run (``launch/dryrun.py``: one rank's step on meta tensors
+     over a fake process group): (a) its CLI for deepseek-v3-671b's
+     train_4k step on the (2, 16, 16) mesh and llama4-scout's decode_32k
+     step on the (16, 16) mesh, each a subprocess, every record key
+     present, the dominant term, bytes per device and collective bytes
+     printed; (b) its (1, 1) records of tmux-12l-768h at the ``[train]``
+     shape (8 x 40 x 128, task "lm") with remat "none" and "full" against
+     the same step on the card through ``make_train_step(mesh=)`` on the
+     world-1 ``nccl`` mesh (the plain path, as the dry-run traces it):
+     the ``FlopCounterMode`` FLOPs of a step equal, the peak
+     ``max_memory_allocated`` of three steps within 15% of the record's
+     ``bytes_per_device``, the predicted max(compute_s, memory_s) beside
+     the median step time (taken once the subprocesses are done);
   8. the sliding window: ``gemma3-4b`` at full width and depth (34 layers:
      29 local with rings of 1024 rows, 5 global), N=8, bf16 (random weights
      from --seed), served by ``ContinuousScheduler`` on the paged pool
@@ -210,6 +223,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2078,6 +2092,186 @@ def run_mesh(torch, seed: int):
     return launches
 
 
+DRYRUN_KEYS = ("compute_s", "memory_s", "collective_s", "dominant",
+               "hlo_flops", "collective_bytes", "argument_size_in_bytes",
+               "temp_size_in_bytes", "bytes_per_device", "roofline")
+DRYRUN_MEM_TOL = 0.15                 # |peak - bytes_per_device|, relative
+
+
+def dryrun_cli(flags: list, out: Path):
+    """``repro_torch.launch.dryrun`` with ``flags`` as a subprocess (its
+    own fake process group), writing its record under ``out``."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
+         "--out", str(out)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+
+
+def dryrun_record(proc, out: Path, tag: str) -> dict:
+    """The one record ``proc`` (``dryrun_cli``) wrote; fails on a nonzero
+    exit or a missing key."""
+    stdout, stderr = proc.communicate(timeout=600)
+    for line in stdout.splitlines():
+        print(f"[dryrun] {tag}: {line}")
+    recs = sorted(out.glob("*.json"))
+    if proc.returncode or len(recs) != 1:
+        print(stderr[-3000:])
+        raise SystemExit(f"[dryrun] FAIL: {tag} exited {proc.returncode} "
+                         f"with {len(recs)} records")
+    rec = json.loads(recs[0].read_text())
+    missing = [k for k in DRYRUN_KEYS if k not in rec]
+    if missing:
+        raise SystemExit(f"[dryrun] FAIL: {tag}'s record lacks {missing}")
+    return rec
+
+
+def run_dryrun(torch, seed: int):
+    """The dry-run (``launch/dryrun.py``): (a) its CLI on this machine for
+    deepseek-v3-671b's train_4k step on the (2, 16, 16) mesh and
+    llama4-scout's decode_32k step on the (16, 16) mesh, each a
+    subprocess with its own fake process group, every record key present;
+    (b) its (1, 1) records of tmux-12l-768h at the ``[train]`` shape (8 x
+    40 x 128, task "lm", float32 moments) with remat "none" and "full"
+    against the same step on the card (``make_train_step(mesh=)`` on the
+    world-1 ``nccl`` mesh, the plain path): the FLOPs of one step
+    (``FlopCounterMode``) equal, the peak of ``max_memory_allocated``
+    over three steps within DRYRUN_MEM_TOL of the record's
+    ``bytes_per_device``; the predicted max(compute_s, memory_s) printed
+    beside the median of five step times, taken once the subprocesses are
+    done."""
+    import gc
+    import shutil
+
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import mesh_info_from_mesh
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    root = Path(__file__).resolve().parent / "build" / "dryrun"
+    shutil.rmtree(root, ignore_errors=True)
+    groups, seq_len, arch = 8, 128, "tmux-12l-768h"
+    n = get_config(arch).mux.n
+    cli = {"deepseek-v3-671b train_4k multipod": [
+               "--arch", "deepseek-v3-671b", "--shape", "train_4k",
+               "--mesh", "multipod"],
+           "llama4-scout-17b-a16e decode_32k pod": [
+               "--arch", "llama4-scout-17b-a16e", "--shape", "decode_32k",
+               "--mesh", "pod"]}
+    for remat in ("none", "full"):
+        cli[f"{arch} (1, 1) remat {remat}"] = [
+            "--arch", arch, "--shape", "train_4k", "--seq-len",
+            str(seq_len), "--global-batch", str(groups * n), "--mux-n",
+            str(n), "--mesh", "single", "--remat", remat]
+    t0 = time.perf_counter()
+    procs = {}
+    for i, (tag, flags) in enumerate(cli.items()):
+        out = root / str(i)
+        procs[tag] = (dryrun_cli(flags, out), out)
+
+    # (b) the card's side meanwhile: the same step, remat none and full
+    card = torch.cuda.get_device_name(0)
+    mesh = make_test_mesh("cuda")
+    mi = mesh_info_from_mesh(mesh)
+    tcfg = TrainConfig(task="lm", total_steps=1000, state_dtype="float32")
+
+    def train(remat):
+        """After one step: the state, and the step on its batch."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(arch), remat=remat)
+        state = Trainer.init_state(cfg, tcfg, seed=seed, device="cuda")
+        step = Trainer.make_train_step(cfg, tcfg, mesh=mesh, mesh_info=mi)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab, (groups, n, seq_len), generator=g, device="cuda",
+            dtype=torch.int32)}
+        index = torch.randint(0, n, (groups, seq_len), generator=g,
+                              device="cuda")
+        state, _ = step(state, batch, None, retr_index=index)
+        return state, lambda state: step(state, batch, None,
+                                         retr_index=index)
+
+    measured = {}
+    try:
+        for remat in ("none", "full"):
+            state, step = train(remat)
+            with FlopCounterMode(display=False) as fc:
+                state, m = step(state)
+            del m
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(3):
+                state, m = step(state)
+                loss = float(m["loss"])
+                del m
+            measured[remat] = dict(flops=fc.get_total_flops(),
+                                   peak=torch.cuda.max_memory_allocated(),
+                                   loss=loss)
+            del state, step
+
+        # (a) and (b): the records
+        recs = {tag: dryrun_record(proc, out, tag)
+                for tag, (proc, out) in procs.items()}
+        # the step times, with the dry-run subprocesses gone
+        for remat in ("none", "full"):
+            state, step = train(remat)
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                state, m = step(state)
+                float(m["loss"])                   # waits for the step
+                walls.append((time.perf_counter() - t1) * 1e3)
+                del m
+            measured[remat].update(ms=statistics.median(walls), walls=walls)
+            del state, step
+    finally:
+        dist.destroy_process_group()
+
+    print(f"[dryrun] {len(procs)} dry-run subprocesses and the card's "
+          f"steps: {time.perf_counter() - t0:.1f} s")
+    for tag in list(cli)[:2]:
+        r = recs[tag]
+        print(f"[dryrun] (a) {tag}: {r['dominant']}-bound (compute "
+              f"{r['compute_s']:.6g} s, memory {r['memory_s']:.6g} s, "
+              f"collective {r['collective_s']:.6g} s), bytes_per_device "
+              f"{r['bytes_per_device']} ({r['bytes_per_device'] / 1e9:.1f} "
+              f"GB of which the compute copy {r['compute_copy_bytes']}), "
+              f"collective bytes {r['collective_bytes']['total']:.0f} "
+              f"{ {k: v for k, v in r['collective_bytes'].items()} }, "
+              f"traced in {r['lower_s']} s (a prediction from meta "
+              f"tensors)")
+    failed = []
+    for remat in ("none", "full"):
+        r, m = recs[f"{arch} (1, 1) remat {remat}"], measured[remat]
+        flops = r["hlo_flops"] / r["n_chips"]
+        rel = (m["peak"] - r["bytes_per_device"]) / r["bytes_per_device"]
+        predicted = max(r["compute_s"], r["memory_s"]) * 1e3
+        print(f"[dryrun] (b) {arch} remat {remat}: FLOPs dry-run {flops:.0f}"
+              f", card {m['flops']} (equal: {flops == m['flops']}); peak "
+              f"memory {m['peak']} B on the card against bytes_per_device "
+              f"{r['bytes_per_device']} (arguments "
+              f"{r['argument_size_in_bytes']} + temp "
+              f"{r['temp_size_in_bytes']}): {rel:+.4f} (tol "
+              f"{DRYRUN_MEM_TOL}); predicted max(compute, memory) "
+              f"{predicted:.3f} ms against a median step of {m['ms']:.3f} "
+              f"ms wall ({[round(w, 3) for w in m['walls']]}; loss "
+              f"{m['loss']:.6g}; {card})")
+        if flops != m["flops"]:
+            failed.append(f"remat {remat} FLOPs")
+        if not abs(rel) <= DRYRUN_MEM_TOL:
+            failed.append(f"remat {remat} peak memory")
+    if failed:
+        raise SystemExit(f"[dryrun] FAIL: {failed}")
+    return {}
+
+
 MESH_MOE_LAYERS = 2                   # of llama4-scout's 48 in (d)'s serving
 
 
@@ -3819,6 +4013,7 @@ def main(argv=None) -> int:
     for phase, run in (("slice", run_slice), ("paged", run_paged_slice),
                        ("eval", run_eval), ("router", run_router),
                        ("train", run_train), ("mesh", run_mesh),
+                       ("dryrun", run_dryrun),
                        ("window", run_window),
                        ("dense", run_dense), ("moe", run_moe),
                        ("mla", run_mla), ("hybrid", run_hybrid),

@@ -5,8 +5,11 @@ defaults, so one set of values describes a run in both packages.
 ``ModelConfig`` keeps the fields of the dense, MoE, hybrid, ssm, vlm and
 audio families (MLA mixers included; Mamba mixers beside attention;
 mLSTM and sLSTM mixers; cross-attention sublayers over a context and an
-encoder stack).  Strategy names are validated against the port's own
-registry (``repro_torch.core.strategies``).
+encoder stack), and the reference's ``remat`` and ``seq_parallel``.
+Strategy names are validated against the port's own registry
+(``repro_torch.core.strategies``).  ``ShapeConfig`` / ``INPUT_SHAPES`` are
+the reference's input shapes, which the dry-run (``launch/dryrun.py``)
+steps through.
 """
 from __future__ import annotations
 
@@ -154,6 +157,7 @@ class ServingConfig:
 # ---------------------------------------------------------------------------
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
+REMAT = ("none", "dots", "full")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,8 +200,20 @@ class ModelConfig:
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+    remat: str = "none"              # none | dots | full: activation
+                                     # checkpointing of each scanned
+                                     # layer-pattern group under autograd;
+                                     # the reference defaults to "dots",
+                                     # the port to "none" (ROADMAP Queue C)
+    seq_parallel: bool = False       # the reference's Megatron-SP
+                                     # constraint; refused on a mesh
+                                     # (compute by gather shards no
+                                     # activation over ``model``)
 
     def __post_init__(self):
+        if self.remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got "
+                             f"{self.remat!r}")
         if self.family not in FAMILIES:
             raise ValueError(f"unknown model family {self.family!r}; the "
                              f"port runs {', '.join(FAMILIES)}")
@@ -380,6 +396,38 @@ class ModelConfig:
         if self.encoder is not None:
             total += self.encoder.param_count()
         return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only the routed top-k experts),
+        the reference's arithmetic."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        mult = 3 if m.gated else 2
+        per_expert = mult * self.d_model * m.moe_ff
+        n_moe_layers = sum(1 for k in self.layer_kinds() if k["mlp"] == "moe")
+        inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
+        return self.param_count() - inactive
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int   # instances; the backbone sees ceil(global_batch / N)
+    kind: str           # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 def replace(cfg, **kw):

@@ -4,9 +4,8 @@ MoE 256 routed experts top-8 (sigmoid scoring) + 1 shared, expert width
 width 18432.  MLA with a compressed-latent KV cache (kv_lora_rank 512 +
 rope 64 per token).  The reference's docstring also names an MTP head,
 which no module of the reference implements; the port has none either.
-The reference's ``remat`` setting (activation checkpointing under its
-jitted scan) has no counterpart in the port, which runs its layers in a
-plain loop.  [arXiv:2412.19437]"""
+Training recomputes every layer-pattern group in the backward
+(``remat="full"``, as in the reference).  [arXiv:2412.19437]"""
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import MLAConfig
 from repro_torch.nn.moe import MoEConfig
@@ -33,4 +32,5 @@ CONFIG = ModelConfig(
     activation="silu",
     gated_mlp=True,
     tie_embeddings=False,
+    remat="full",
 )

@@ -1,9 +1,8 @@
 """jamba-1.5-large-398b — hybrid, 72L d_model=8192 64H (GQA kv=8)
 d_ff=24576 vocab=65536; Mamba+attention 1:7 interleave (1 attention layer
 per 8-layer block, at offset 4), MoE 16 experts top-2 on every other
-layer.  The reference's ``remat`` setting (activation checkpointing under
-its jitted scan) has no counterpart in the port, which runs its layers in
-a plain loop.  [arXiv:2403.19887]"""
+layer.  Training recomputes every layer-pattern group in the backward
+(``remat="full"``, as in the reference).  [arXiv:2403.19887]"""
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.moe import MoEConfig
 from repro_torch.nn.ssm import MambaConfig
@@ -29,4 +28,5 @@ CONFIG = ModelConfig(
     activation="silu",
     gated_mlp=True,
     tie_embeddings=False,
+    remat="full",
 )

@@ -1,9 +1,8 @@
 """llama4-scout-17b-a16e — MoE, 48L d_model=5120 40H (GQA kv=8) d_ff=8192
 vocab=202048; 16 routed experts top-1 + 1 shared expert on every layer
 (interleave step 1); early-fusion multimodal in the original — the text
-backbone here, as in the reference.  The reference's ``remat`` setting
-(activation checkpointing under its jitted scan) has no counterpart in the
-port, which runs its layers in a plain loop.
+backbone here, as in the reference.  Training saves the matmul outputs
+and recomputes the rest (``remat="dots"``, as in the reference).
 [hf:meta-llama/Llama-4-Scout-17B-16E]"""
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.moe import MoEConfig
@@ -27,4 +26,5 @@ CONFIG = ModelConfig(
     gated_mlp=True,
     rope_theta=500_000.0,
     tie_embeddings=False,
+    remat="dots",
 )

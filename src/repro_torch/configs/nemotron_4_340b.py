@@ -1,7 +1,7 @@
 """nemotron-4-340b — dense, 96L d_model=18432 96H (GQA kv=8) d_ff=73728
-vocab=256000; LayerNorm, squared-ReLU, no gating, untied head.  The
-reference's ``remat="full"`` has no field here: the port's configs carry no
-rematerialisation setting.  [arXiv:2402.16819]"""
+vocab=256000; LayerNorm, squared-ReLU, no gating, untied head.  Training
+recomputes every layer-pattern group in the backward (``remat="full"``, as
+in the reference).  [arXiv:2402.16819]"""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -19,4 +19,5 @@ CONFIG = ModelConfig(
     gated_mlp=False,
     rope_theta=10_000.0,
     tie_embeddings=False,
+    remat="full",               # 340B training needs aggressive remat
 )

@@ -64,7 +64,8 @@ def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
     Mamba arch keeps its state, conv and expansion at d_model with scan
     chunks of 16, and a hybrid one an attention layer every 4th layer
     (at most) from layer 1; an xLSTM arch keeps 4 heads at d_model, with
-    scan chunks of 16 and every 2nd layer sLSTM."""
+    scan chunks of 16 and every 2nd layer sLSTM; no activation
+    checkpointing (``remat="none"``)."""
     cfg = get_config(arch)
     d = min(cfg.d_model, 256)
     heads = 4
@@ -111,5 +112,13 @@ def get_smoke_config(arch: str, *, mux_n: int = 1) -> ModelConfig:
         vocab=512,
         dtype="float32",
         param_dtype="float32",
+        remat="none",
         mux=dataclasses.replace(cfg.mux, n=mux_n),
     )
+
+
+def long_500k_supported(arch: str) -> bool:
+    """Sub-quadratic decode (the reference's rule): the ssm and hybrid
+    families, and a sliding-window dense arch (gemma3)."""
+    cfg = get_config(arch)
+    return cfg.family in ("ssm", "hybrid") or cfg.window is not None

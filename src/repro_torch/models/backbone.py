@@ -8,8 +8,11 @@ protocol → mux strategy → attention + MLP blocks → demux strategy →
 per-instance logits.  Mux/demux schemes resolve by name from the port's
 strategy registry; ``cfg.mux.n == 1`` degrades to a plain LM.  Where the
 reference compiles its layers into a head / scanned / tail pattern, the
-port runs a plain loop over ``layers``, and keys the context's
-cross-attention K/V (``encode_context``) by absolute layer index.
+port runs a plain loop over ``layers`` (under autograd, ``cfg.remat``
+checkpoints each scanned group as the reference's ``jax.checkpoint``
+does), and keys the context's cross-attention K/V (``encode_context``) by
+absolute layer index.  ``Backbone(cfg, device="meta")`` builds the
+shapes alone, the counterpart of ``jax.eval_shape(Backbone.init)``.
 """
 from __future__ import annotations
 
@@ -67,6 +70,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
             caches.append(Attention.init_cache(acfg, batch, max_len, dtype,
                                                device))
     return caches
+
+
+def _checkpoint(fn, *args, remat: str):
+    """``fn(*args)`` under activation checkpointing: ``"full"`` recomputes
+    everything in the backward, ``"dots"`` saves the matmuls without batch
+    dims (the reference's ``dots_with_no_batch_dims_saveable``)."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    dots = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+    return checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: create_selective_checkpoint_contexts(dots))
 
 
 class Block(nn.Module):
@@ -181,7 +198,8 @@ class Block(nn.Module):
 
 class Backbone(nn.Module):
     """Weights are drawn from ``seed`` with a ``torch.Generator`` on
-    ``device`` (the GPU unless the caller asks for another device).  A
+    ``device`` (the GPU unless the caller asks for another device); on
+    ``meta`` they are shapes only, drawn from nothing.  A
     config with an ``encoder`` gets ``encoder.layers`` and
     ``encoder.final_norm``, in the encoder's param dtype.
     ``use_flash`` routes each layer's cache-free causal attention through
@@ -193,7 +211,9 @@ class Backbone(nn.Module):
                  use_flash: bool = False):
         super().__init__()
         device = resolve_device(device)
-        g = torch.Generator(device=device).manual_seed(seed)
+        # On ``meta`` (the dry-run's shapes) nothing is drawn: no generator.
+        g = None if device.type == "meta" else \
+            torch.Generator(device=device).manual_seed(seed)
         kw = dict(generator=g, device=device, dtype=cfg.pdtype)
         self.cfg = cfg
         self.use_flash = use_flash
@@ -326,17 +346,44 @@ class Backbone(nn.Module):
                     block_table=None, chunk_lens=None, row_mask=None,
                     cross_kv=None, on_mesh: Optional[OnMesh] = None):
         """-> (final-normed hidden, the MoE layers' aux losses summed in
-        layer order as a float32 scalar)."""
+        layer order as a float32 scalar).
+
+        Under autograd with no cache, ``cfg.remat`` checkpoints each group
+        of the reference's scanned layer pattern (``cfg.layer_pattern()``;
+        its head and tail layers are not): ``"full"`` recomputes the whole
+        group in the backward, ``"dots"`` saves the outputs of the
+        matmuls without batch dims (``aten.mm`` / ``aten.addmm``, what a
+        Linear reaches) and recomputes the rest.  The numbers are those of
+        ``"none"``; only the memory held for the backward changes."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         cross_kv = cross_kv or {}
-        for i, layer in enumerate(self.layers):
-            x, _, aux = layer(x, positions=positions,
-                              cache=None if cache is None else cache[i],
-                              cache_index=cache_index,
-                              block_table=block_table,
-                              chunk_lens=chunk_lens, row_mask=row_mask,
-                              cross_kv=cross_kv.get(i), on_mesh=on_mesh)
-            if aux is not None:
+
+        def run(lo: int, hi: int, x):
+            auxes = []
+            for i in range(lo, hi):
+                x, _, aux = self.layers[i](
+                    x, positions=positions,
+                    cache=None if cache is None else cache[i],
+                    cache_index=cache_index, block_table=block_table,
+                    chunk_lens=chunk_lens, row_mask=row_mask,
+                    cross_kv=cross_kv.get(i), on_mesh=on_mesh)
+                if aux is not None:
+                    auxes.append(aux)
+            return x, auxes
+
+        remat = self.cfg.remat if cache is None and \
+            torch.is_grad_enabled() else "none"
+        head, period, groups = self.cfg.layer_pattern() \
+            if remat != "none" else (0, 1, 0)
+        i = 0
+        while i < len(self.layers):
+            if remat != "none" and head <= i < head + period * groups:
+                x, auxes = _checkpoint(run, i, i + period, x, remat=remat)
+                i += period
+            else:
+                x, auxes = run(i, i + 1, x)
+                i += 1
+            for aux in auxes:
                 aux_total = aux_total + aux
         return self.final_norm(x), aux_total
 

@@ -232,7 +232,17 @@ def check_mesh(cfg: MoEConfig, mi: MeshInfo) -> None:
 
 
 def check_model_mesh(cfg, mi: MeshInfo) -> None:
-    """``check_mesh`` for a model config's MoE layers (none: nothing)."""
+    """``check_mesh`` for a model config's MoE layers (none: nothing); and
+    ``seq_parallel`` refused on any mesh: the reference constrains the
+    activations between blocks to a ``model``-sharded d, and under the
+    port's compute by gather no activation is sharded over ``model``."""
+    if cfg.seq_parallel:
+        raise ValueError(
+            "seq_parallel=True is refused on the port's mesh: under compute "
+            "by gather (ROADMAP Queue C) the parameters are gathered whole "
+            "and no activation is sharded over the model axis, so the "
+            "reference's Megatron-SP constraint (the activations' d "
+            "sharded over it) has nothing to constrain")
     if mi.data_size * mi.model_size * mi.pod_size > 1 and any(
             k["mlp"] == "moe" for k in cfg.layer_kinds()):
         check_mesh(cfg.moe, mi)

@@ -93,7 +93,8 @@ class Trainer:
         if tcfg.task in ("cls", "tag"):
             if tcfg.n_classes <= 0:
                 raise ValueError("cls/tag task needs n_classes")
-            g = torch.Generator(device=model.device).manual_seed(seed + 1)
+            g = None if model.device.type == "meta" else \
+                torch.Generator(device=model.device).manual_seed(seed + 1)
             w = 0.02 * torch.randn((cfg.d_model, tcfg.n_classes),
                                    generator=g, device=model.device)
             state["task_head"] = {"w": w.to(cfg.pdtype)}
