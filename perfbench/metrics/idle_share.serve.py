@@ -1,0 +1,9 @@
+"""idle_share.serve: the share of the traced segment in which no kernel,
+copy or fill ran on the card, in percent."""
+
+
+def read(run):
+    seg = run.segment
+    if seg is None or seg.window_s <= 0 or seg.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - seg.busy_s / seg.window_s)
